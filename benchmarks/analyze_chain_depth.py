@@ -87,10 +87,10 @@ def doubling_census(ptr, final, cap=16):
 def main():
     corpus_mb = int(sys.argv[1]) if len(sys.argv) > 1 else 28
     nb = int(sys.argv[2]) if len(sys.argv) > 2 else 12
-    from benchmarks.corpus import silesia_like
+    from benchmarks.corpus import mixed_corpus
     from tpucomp import _native
 
-    data = silesia_like(corpus_mb << 20)
+    data = mixed_corpus(corpus_mb << 20)
     blocks = [data[i:i + U] for i in range(0, len(data), U)]
     step = max(1, len(blocks) // nb)
     worst = 0

@@ -38,9 +38,9 @@ def build(cap):
 
 def main():
     corpus_mb = int(sys.argv[1]) if len(sys.argv) > 1 else 8
-    from benchmarks.corpus import silesia_like
+    from benchmarks.corpus import mixed_corpus
 
-    data = silesia_like(corpus_mb << 20)
+    data = mixed_corpus(corpus_mb << 20)
     U = 65536
     units = [data[i:i + U] for i in range(0, len(data), U)]
 

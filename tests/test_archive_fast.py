@@ -3,11 +3,11 @@ value-chase probe decode (fast_resolve=True).
 
 The native ``*_compress_resolved`` profile (tpucomp/native/
 tpucomp_native.c rw_* — origin ascent + decode-depth bound) guarantees
-the TPU decoder's far resolution converges within the archive budget:
+the device decoder's far resolution converges within the archive budget:
 the cond-driven 4 KiB doubling level plus TWO probe rounds
 (kernels/common._far_rounds fast=True).  These tests pin:
 
-* bit-exact decode of resolved streams through the TPU pipeline with
+* bit-exact decode of resolved streams through the device pipeline with
   fast_resolve on, at every supported depth bound;
 * fast_resolve stays semantics-preserving for FOREIGN (unresolved)
   streams — the probes are a shortcut, not a contract change;
@@ -96,7 +96,6 @@ class TestDepthModelInvariant:
         from jax.experimental import io_callback
 
         import tpucomp.kernels.common as kc
-        import tpucomp.kernels.resolve_pallas as rp
 
         captured = []
         real = kc._far_rounds
@@ -104,14 +103,11 @@ class TestDepthModelInvariant:
         def snap(a, u):
             captured.append((np.asarray(a), int(u)))
 
-        def capture(out, u, min_hop, fast=False, interpret=False,
-                    max_hop=None):
+        def capture(out, u, min_hop, fast=False, max_hop=None):
             io_callback(snap, None, out, np.int32(u), ordered=True)
-            return real(out, u, min_hop, fast=fast, interpret=interpret,
-                        max_hop=max_hop)
+            return real(out, u, min_hop, fast=fast, max_hop=max_hop)
 
         kc._far_rounds = capture
-        rp._far_rounds = capture
         # cached decoders would bake a PREVIOUS test's captured-list
         # callback (or none at all) into the jitted program — trace
         # fresh, and leave no capture-contaminated entries behind
@@ -121,7 +117,6 @@ class TestDepthModelInvariant:
                 streams, [len(b) for b in blocks], fast_resolve=True)
         finally:
             kc._far_rounds = real
-            rp._far_rounds = real
             t_xh._DECODERS.clear()
         assert outs == blocks
         assert captured, "far rounds never entered"
@@ -130,7 +125,7 @@ class TestDepthModelInvariant:
             st = jnp.asarray(tagged0)
             st = _far_level_segmented(st, u, 4096, cap=6)
             for _ in range(depth):
-                st = _far_probe_round(st, u, interpret=True)
+                st = _far_probe_round(st, u)
             left = int(np.asarray((st & FAR_TAG) != 0).sum())
             assert left == 0, (
                 f"{left} tags unresolved after {depth} probes")

@@ -1,4 +1,4 @@
-"""TPU LZNT1 codec vs oracle: cross-decode/encode bit-compatibility."""
+"""Device LZNT1 codec vs oracle: cross-decode/encode bit-compatibility."""
 
 import numpy as np
 import pytest
@@ -27,7 +27,7 @@ def cases(corpus, rng):
 
 
 class TestDecodeBitCompat:
-    """TPU decode must accept any oracle (reference-semantics) stream."""
+    """Device decode must accept any oracle (reference-semantics) stream."""
 
     def test_decode_oracle_streams(self, corpus, rng):
         for data in cases(corpus, rng):
@@ -52,7 +52,7 @@ class TestDecodeBitCompat:
 
 
 class TestEncodeValidity:
-    """TPU encode must produce streams the oracle decodes byte-exactly,
+    """Device encode must produce streams the oracle decodes byte-exactly,
     at sizes <= the stored-raw bound and competitive with the oracle."""
 
     def test_oracle_decodes_tpu_streams(self, corpus, rng):

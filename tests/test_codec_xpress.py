@@ -1,4 +1,4 @@
-"""TPU Xpress codec vs oracle: cross-decode/encode bit-compatibility.
+"""Device Xpress codec vs oracle: cross-decode/encode bit-compatibility.
 
 Uses a small unit size (4 KiB) so the CPU-simulated scans stay quick;
 the device code is unit-size-agnostic (jitted per size).
@@ -17,7 +17,7 @@ def units_of(data, u=U):
 
 
 class TestEncodeValidity:
-    """Oracle must decode TPU unit streams byte-exactly."""
+    """Oracle must decode device unit streams byte-exactly."""
 
     def test_oracle_decodes_tpu_units(self, corpus, rng):
         cases = [
@@ -71,7 +71,7 @@ class TestEncoderQuality:
 
 
 class TestDecodeBitCompat:
-    """TPU decode must accept any oracle (reference-semantics) stream."""
+    """Device decode must accept any oracle (reference-semantics) stream."""
 
     def test_decode_oracle_streams(self, corpus, rng):
         cases = [
@@ -187,3 +187,26 @@ class TestStreamEncoder:
         data = corpus(200000)
         s = xp.compress(data)
         assert _native.xpress_decompress(s, len(data)) == data
+
+
+def test_decompress_units_one_call_per_batch(corpus, rng, monkeypatch):
+    """Units whose streams differ widely in size decode in ONE device
+    call."""
+    calls = []
+    real = t_xpress._dec_for
+
+    def spy(*a, **kw):
+        calls.append(a)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(t_xpress, "_dec_for", spy)
+    u = 4 * U
+    units = [b"q" * u, corpus(u), bytes(rng.randrange(256) for _ in range(u)),
+             b"abc"]
+    streams = [o_xpress.compress(x) for x in units]
+    assert max(map(len, streams)) > 8192 + min(map(len, streams))
+    out = t_xpress.decompress_units(streams, [len(x) for x in units],
+                                    unit_size=u)
+    assert out == units
+    assert len(calls) == 1
+

@@ -1,6 +1,7 @@
-"""Unit tests for the shared TPU kernel primitives."""
+"""Unit tests for the shared device kernel primitives."""
 
 import numpy as np
+import pytest
 
 import jax.numpy as jnp
 
@@ -88,30 +89,6 @@ def test_resolve_copies_deep_rle():
     assert (out == 77).all()
 
 
-def test_fill_records_dense_matches_fill_gather():
-    import numpy as np
-    import jax.numpy as jnp
-    from tpucomp.kernels.common import fill_gather, fill_records_dense
-
-    rng = np.random.default_rng(3)
-    N, R, U = 20, 3000, 700
-    SENT = 1 << 28
-    rp = np.full((N, R), SENT, np.int32)
-    rv = np.zeros((N, R), np.int32)
-    for i in range(N):
-        k = rng.integers(1, 400)
-        ps = np.sort(rng.choice(U, size=k, replace=False))
-        rp[i, :k] = ps
-        rv[i, :k] = rng.integers(1, 1 << 16, k)
-    j = np.broadcast_to(np.arange(U, dtype=np.int32)[None], (N, U))
-    want = np.asarray(fill_gather(jnp.asarray(rp), jnp.asarray(rv), jnp.asarray(j)))
-    # force the slab/chunk fori path with tiny tiles
-    got = np.asarray(
-        fill_records_dense(jnp.asarray(rp), jnp.asarray(rv), U, slab=4, chunk=512)
-    )
-    assert np.array_equal(want, got)
-
-
 def test_compact_records_preserves_fill():
     import numpy as np
     import jax.numpy as jnp
@@ -150,50 +127,49 @@ def test_compact_records_preserves_fill():
     assert np.asarray(ovf).all()
 
 
-def test_fill_gather_tiled_matches_monolithic():
-    import numpy as np
-    import jax.numpy as jnp
-    from tpucomp.kernels import common as C
+def _fill_reference(dk, vals, q, reduce=None):
+    """numpy fill_gather: per row, the value of the last entry (column
+    order) with the largest key <= q; ``reduce="or"`` ORs every entry at
+    that key; 0 where no key <= q."""
+    out = [np.zeros(q.shape, np.int64) for _ in vals]
+    for r in range(q.shape[0]):
+        for c, qq in enumerate(q[r]):
+            le = dk[r] <= qq
+            if not le.any():
+                continue
+            best = dk[r][le].max()
+            at = np.flatnonzero(dk[r] == best)
+            for o, v in zip(out, vals):
+                o[r, c] = (np.bitwise_or.reduce(v[r][at]) if reduce == "or"
+                           else v[r][at[-1]])
+    return out
 
+
+@pytest.mark.parametrize("mode", ["single", "tuple", "or"])
+def test_fill_gather_matches_numpy(mode):
+    """Duplicate keys, misses and both value forms against numpy."""
     rng = np.random.default_rng(11)
-    N, P, U = 24, 1500, 1100
-    dk = rng.integers(0, 2000, (N, P)).astype(np.int32)
+    N, P, U = 5, 300, 200
+    dk = rng.integers(0, 400, (N, P)).astype(np.int32)
     v1 = rng.integers(0, 1 << 12, (N, P)).astype(np.int32)
     v2 = rng.integers(0, 1 << 12, (N, P)).astype(np.int32)
-    q = rng.integers(-5, 2100, (N, U)).astype(np.int32)
-    args = (jnp.asarray(dk), (jnp.asarray(v1), jnp.asarray(v2)), jnp.asarray(q))
-    old = C.SORT_CELL_TRIGGER
-    try:
-        C.SORT_CELL_TRIGGER = 1 << 30
-        want = C.fill_gather(*args)
-        want_or = C.fill_gather(*args, reduce="or")
-        want_1 = C.fill_gather(args[0], args[1][0], args[2])
-        want_left = C.fill_gather_left(args[0], args[1][0], args[2])
-        # force tiling with tiny tiles (and exercise the slab adapter)
-        C.SORT_CELL_TRIGGER = 4096
-        got = C._fill_gather_tiled(args[0], args[1], args[2], chunk=512)
-        got_or = C._fill_gather_tiled(args[0], args[1], args[2],
-                                      reduce="or", chunk=512)
-        got_1 = C.fill_gather(args[0], args[1][0], args[2])
-        got_left = C.fill_gather_left(args[0], args[1][0], args[2])
-        s1, s2 = C.sort_rows((args[0], args[1][0]), num_keys=1)
-        w1, w2 = np.sort(dk, axis=1), None
-    finally:
-        C.SORT_CELL_TRIGGER = old
-    for a, b in zip(want, got):
-        assert np.array_equal(np.asarray(a), np.asarray(b))
-    for a, b in zip(want_or, got_or):
-        assert np.array_equal(np.asarray(a), np.asarray(b))
-    assert np.array_equal(np.asarray(want_1), np.asarray(got_1))
-    assert np.array_equal(np.asarray(want_left), np.asarray(got_left))
-    assert np.array_equal(np.asarray(s1), w1)
+    q = rng.integers(-5, 420, (N, U)).astype(np.int32)
+    vals = (v1,) if mode == "single" else (v1, v2)
+    reduce = "or" if mode == "or" else None
+    got = fill_gather(jnp.asarray(dk), jnp.asarray(v1) if mode == "single"
+                      else tuple(map(jnp.asarray, vals)), jnp.asarray(q),
+                      reduce=reduce)
+    got = (got,) if mode == "single" else got
+    for g, w in zip(got, _fill_reference(dk, vals, q, reduce)):
+        assert np.array_equal(np.asarray(g), w)
 
 
-def test_resolve_pallas_segmented_matches_xla():
+def test_resolve_copies_wide_matches_resolve_copies():
+    """The 16-positions-per-step near walk resolves exactly like the
+    per-position walk (chains of random tokens, overlapping copies)."""
     import numpy as np
     import jax.numpy as jnp
-    from tpucomp.kernels import resolve_pallas
-    from tpucomp.kernels.common import resolve_copies
+    from tpucomp.kernels.common import resolve_copies, resolve_copies_wide
 
     rng = np.random.default_rng(23)
     N, U = 6, 2048
@@ -213,9 +189,7 @@ def test_resolve_pallas_segmented_matches_xla():
                 j += int(rng.integers(1, 9))
     a = (jnp.asarray(is_copy), jnp.asarray(disp), jnp.asarray(litv))
     want = np.asarray(resolve_copies(*a))
-    got = np.asarray(
-        resolve_pallas.resolve_copies(*a, window=512, interpret=True)
-    )
+    got = np.asarray(resolve_copies_wide(*a, window=512))
     assert np.array_equal(want, got)
 
 
@@ -439,12 +413,12 @@ def test_far_rounds_compacted_final_level():
     assert (got == want).all()
 
 
-def test_gather_rows_fused_matches_xla(rng):
-    """Fused Pallas gather (interpret) == mxu_gather_rows semantics."""
+def test_mxu_gather_rows_wide_table(rng):
+    """One-hot gather over a table wider than 16 K entries == numpy
+    take, out-of-range indices reading 0."""
     import numpy as np
 
     from tpucomp.kernels.common import mxu_gather_rows
-    from tpucomp.kernels.gather_pallas import gather_rows_fused
 
     N, K, Q = 3, 16384 + 77, 1500
     data = np.array(
@@ -453,10 +427,11 @@ def test_gather_rows_fused_matches_xla(rng):
     idx = np.array(
         [[rng.randrange(-5, K + 200) for _ in range(Q)] for _ in range(N)],
         np.int32)
-    want = np.asarray(mxu_gather_rows(jnp.asarray(data), jnp.asarray(idx),
+    got = np.asarray(mxu_gather_rows(jnp.asarray(data), jnp.asarray(idx),
                                       nbits=18))
-    got = np.asarray(gather_rows_fused(jnp.asarray(data), jnp.asarray(idx),
-                                       nbits=18, interpret=True))
+    ok = (idx >= 0) & (idx < K)
+    want = np.where(ok, data[np.arange(N)[:, None], np.clip(idx, 0, K - 1)],
+                    0)
     assert (got == want).all()
 
 
@@ -494,72 +469,56 @@ def test_hash_best_match_equals_unfused(rng):
         assert (np.asarray(bd)[sel] == np.asarray(ebd)[sel]).all(), max_disp
 
 
-def test_bitonic_sort_rows_matches_lax_sort():
-    """Pallas bitonic row sort (kernels/sort_pallas): ascending by a
-    UNIQUE key, payload planes permuted along — exactly lax.sort."""
+@pytest.mark.parametrize("N,U", [(3, 256), (9, 1024), (40, 65536)])
+def test_sort_rows_matches_lax_sort(N, U):
+    """sort_rows == one lax.sort: ascending by a UNIQUE key, payload
+    planes permuted along."""
     import jax.numpy as jnp
     from jax import lax
 
-    from tpucomp.kernels.sort_pallas import bitonic_sort_rows
+    from tpucomp.kernels.common import sort_rows
 
     rng = np.random.default_rng(11)
-    for N, U in ((3, 256), (9, 1024)):
-        key = np.stack([rng.permutation(U) for _ in range(N)]).astype(
-            np.int32) * 5 - 7  # unique, some negative
-        pay = rng.integers(-2**31, 2**31 - 1, (N, U), dtype=np.int32)
-        ref = lax.sort((jnp.asarray(key), jnp.asarray(pay)),
-                       dimension=1, num_keys=1)
-        got = bitonic_sort_rows((jnp.asarray(key), jnp.asarray(pay)),
-                                interpret=True)
-        for r, g in zip(ref, got):
-            assert (np.asarray(r) == np.asarray(g)).all()
+    key = np.stack([rng.permutation(U) for _ in range(N)]).astype(
+        np.int32) * 5 - 7  # unique, some negative
+    pay = rng.integers(-2**31, 2**31 - 1, (N, U), dtype=np.int32)
+    ref = lax.sort((jnp.asarray(key), jnp.asarray(pay)),
+                   dimension=1, num_keys=1)
+    got = sort_rows((jnp.asarray(key), jnp.asarray(pay)))
+    for r, g in zip(ref, got):
+        assert (np.asarray(r) == np.asarray(g)).all()
 
 
-def test_gather18_variants():
-    """Pair-packed and stacked-plane 18-bit gathers (the far levels'
-    pointer fetch) against a numpy reference, incl. OOR and same-row
-    collision pairs."""
+def test_gather18_reference():
+    """The far levels' 18-bit pointer fetch against numpy, including
+    out-of-range indices."""
     import jax.numpy as jnp
 
-    from tpucomp.kernels.gather_pallas import (
-        gather18_pairs,
-        gather18_stacked,
-    )
+    from tpucomp.kernels.common import _gather18
 
     rng = np.random.default_rng(12)
     N, K, Q = 3, 900, 300
     data = rng.integers(0, 1 << 18, (N, K), dtype=np.int32)
-    i1 = rng.integers(-4, K + 4, (N, Q), dtype=np.int32)
-    i2 = i1.copy()
-    i2[:, ::2] = rng.integers(-4, K + 4, (N, Q // 2), dtype=np.int32)
-
-    def ref(idx):
-        ok = (idx >= 0) & (idx < K)
-        return np.where(
-            ok, data[np.arange(N)[:, None], np.clip(idx, 0, K - 1)], 0)
-
-    g1, g2 = gather18_pairs(jnp.asarray(data), jnp.asarray(i1),
-                            jnp.asarray(i2), interpret=True)
-    assert (np.asarray(g1) == ref(i1)).all()
-    assert (np.asarray(g2) == ref(i2)).all()
-    gs = gather18_stacked(jnp.asarray(data), jnp.asarray(i1),
-                          interpret=True)
-    assert (np.asarray(gs) == ref(i1)).all()
+    idx = rng.integers(-4, K + 4, (N, Q), dtype=np.int32)
+    ok = (idx >= 0) & (idx < K)
+    want = np.where(
+        ok, data[np.arange(N)[:, None], np.clip(idx, 0, K - 1)], 0)
+    got = _gather18(jnp.asarray(data), jnp.asarray(idx))
+    assert (np.asarray(got) == want).all()
 
 
-def test_run_matchlens_fused_matches_scan():
-    """Fused Pallas run matcher == the XLA associative-scan form."""
+def test_run_matchlens_reference():
+    """The log-depth run matcher against a per-position numpy walk."""
     import jax.numpy as jnp
 
-    from tpucomp.kernels.runs_pallas import run_matchlens_fused
+    from tpucomp.kernels.common import run_matchlens
 
     rng = np.random.default_rng(13)
     x = rng.integers(0, 4, (5, 512), dtype=np.int32)
     x[1] = 7  # constant row: maximal runs
-    fused = run_matchlens_fused(jnp.asarray(x), (1, 2, 3),
-                                interpret=True)
+    outs = run_matchlens(jnp.asarray(x), (1, 2, 3))
     # reference: per-position leading-ones of x[q] == x[q-d]
-    for d, got in zip((1, 2, 3), fused):
+    for d, got in zip((1, 2, 3), outs):
         eq = np.zeros_like(x)
         eq[:, d:] = x[:, d:] == x[:, :-d]
         exp = np.zeros_like(x)
@@ -571,29 +530,20 @@ def test_run_matchlens_fused_matches_scan():
         assert (np.asarray(got) == exp).all(), d
 
 
-def test_probe_gather_pairs_tilings():
-    """probe_gather_pairs under non-default (qc, rb) tilings matches the
-    numpy reference — guards the r5 tiling parameterization (same-row
-    collision pairs, OOR indices, the 256 live-sentinel value)."""
+def test_far_probe_round_reference():
+    """One value-chase probe round against numpy: a tag whose target is
+    final takes the target's byte; a tag on a live target stays."""
     import jax.numpy as jnp
 
-    from tpucomp.kernels.gather_pallas import probe_gather_pairs
+    from tpucomp.kernels.common import FAR_TAG, _far_probe_round
 
     rng = np.random.default_rng(13)
-    N, K, Q = 5, 700, 260
-    probe = rng.integers(0, 257, (N, K), dtype=np.int32)  # incl. 256
-    i1 = rng.integers(-4, K + 4, (N, Q), dtype=np.int32)
-    i2 = i1.copy()  # same-row collisions on half the columns
-    i2[:, ::2] = rng.integers(-4, K + 4, (N, Q // 2), dtype=np.int32)
-
-    def ref(idx):
-        ok = (idx >= 0) & (idx < K)
-        return np.where(
-            ok, probe[np.arange(N)[:, None], np.clip(idx, 0, K - 1)], 0)
-
-    for qc, rb in ((None, None), (512, 4), (2048, 16)):
-        o1, o2 = probe_gather_pairs(jnp.asarray(probe), jnp.asarray(i1),
-                                    jnp.asarray(i2), interpret=True,
-                                    qc=qc, rb=rb)
-        assert (np.asarray(o1) == ref(i1)).all(), (qc, rb)
-        assert (np.asarray(o2) == ref(i2)).all(), (qc, rb)
+    N, U = 5, 700
+    out = rng.integers(0, 256, (N, U), dtype=np.int32)
+    tagged = rng.random((N, U)) < 0.4
+    src = rng.integers(0, U, (N, U), dtype=np.int32)
+    out = np.where(tagged, FAR_TAG | src, out)
+    got = np.asarray(_far_probe_round(jnp.asarray(out), U))
+    tgt = out[np.arange(N)[:, None], src]
+    want = np.where(tagged & ((tgt & FAR_TAG) == 0), tgt & 0xFF, out)
+    assert (got == want).all()

@@ -3,7 +3,7 @@
 Spawns 2 OS processes that form a jax.distributed CPU ring (4 virtual
 devices each -> one 8-device global ('data',) mesh), run the sharded
 codec end-to-end, and exercise _host_gather's process_allgather branch —
-the TPU-native equivalent of the multi-host NCCL ragged gather
+the multi-host ragged gather
 (SURVEY.md §5 "Distributed comm backend").
 """
 

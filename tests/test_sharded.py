@@ -149,3 +149,17 @@ def test_device_trace_wired(corpus, tmp_path):
     assert sc.decompress(arch) == data
     files = list(td.rglob("*"))
     assert files, "profiler trace directory is empty"
+
+
+def test_lznt1_program_shared_across_instances(corpus):
+    """The batch API builds a ShardedCodec per call: its compiled LZNT1
+    programs must be shared per mesh, not rebuilt per instance."""
+    from tpucomp import compress_batch
+
+    a, b = ShardedCodec("lznt1"), ShardedCodec("lznt1")
+    assert a._lznt1_jit(True) is b._lznt1_jit(True)
+    assert a._lznt1_jit(False) is b._lznt1_jit(False)
+    assert a._lznt1_jit(True) is not a._lznt1_jit(False)
+    units = [corpus(4096), corpus(100)]
+    assert compress_batch("lznt1", units) == compress_batch("lznt1", units)
+

@@ -1,5 +1,5 @@
-"""tpucomp — TPU-native Microsoft compression codecs (LZNT1, Xpress,
-Xpress Huffman), built from scratch in JAX/XLA/Pallas.
+"""tpucomp — Microsoft compression codecs (LZNT1, Xpress, Xpress
+Huffman) batched on the GPU, built from scratch in JAX/XLA/Pallas.
 
 Capability parity target: coderforlife/ms-compress (reference mount was
 empty at survey time — SURVEY.md §0; semantics are grounded in the public

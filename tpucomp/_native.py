@@ -160,7 +160,7 @@ def _call_opt(fn, data: bytes, out_cap: int, flags: int) -> bytes:
 
 
 def _default_depth() -> int:
-    # The TPU decoder's archive probe budget: archives written at this
+    # The device decoder's archive probe budget: archives written at this
     # depth resolve entirely in the cheap value-chase probe rounds.
     from .kernels.common import ARCHIVE_PROBE_BUDGET
 
@@ -175,7 +175,7 @@ def xh_compress_resolved(data: bytes, max_depth: int | None = None) -> bytes:
     or dropped).  Output is standard [MS-XCA] §2.1/2.2 — any decoder
     accepts it.  ``max_depth=0`` disables the bound (ascent only).
 
-    Default = kernels.common.ARCHIVE_PROBE_BUDGET, the TPU decoder's
+    Default = kernels.common.ARCHIVE_PROBE_BUDGET, the device decoder's
     archive fast-path budget (value-chase probe rounds in
     kernels/common._far_rounds fast=True), so default-depth archives
     resolve entirely in the cheap probes.  Deeper bounds stay correct —

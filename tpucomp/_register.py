@@ -2,8 +2,9 @@
 
 Import order matters only in that this module must run after
 :mod:`tpucomp.formats`; it is imported from ``tpucomp/__init__.py``.
-TPU backends are registered lazily by :mod:`tpucomp.codecs` (importing JAX
-at package import time is avoided so pure-CPU users stay light).
+The device backends (the ``"tpu"`` key) come from :mod:`tpucomp.codecs`;
+TPUCOMP_NO_JAX=1 skips them so pure-CPU users (and native-encode worker
+processes) never import JAX.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ try:
 except Exception:  # extension not built — oracle remains the CPU path
     pass
 
-# TPU (JAX) batched pipelines.  Guard: JAX import is heavy and some
+# Device (JAX) batched pipelines.  Guard: JAX import is heavy and some
 # consumers only want the CPU paths.
 import os as _os
 

@@ -10,7 +10,8 @@ Backends (select with ``backend=``):
 
 * ``"oracle"`` — spec-exact CPU ground truth (always available).
 * ``"cpu"``    — native C fast path (when the extension is built).
-* ``"tpu"``    — JAX/Pallas batched device pipelines.
+* ``"tpu"``    — JAX/Pallas batched device pipelines (the key is a name;
+  they run on the GPU, or on whatever device JAX uses).
 * ``"auto"``   — best available: cpu → oracle for one-shot bytes;
   use :mod:`tpucomp.dist` for device-batched work.
 """
@@ -73,8 +74,8 @@ def compress_batch(fmt, units, *, unit_size: Optional[int] = None):
     """Device-batched compression of independent units (list of bytes).
 
     Returns a list of per-unit streams, each a standard [MS-XCA] stream
-    of the format.  All units are processed in one device batch (VPU
-    lanes = units); use :class:`tpucomp.dist.ShardedCodec` for
+    of the format.  All units are processed in one device batch (lanes =
+    units); use :class:`tpucomp.dist.ShardedCodec` for
     mesh-sharded operation and archive framing.
     """
     fmt = formats.canonical(fmt)

@@ -1,25 +1,18 @@
-"""LZNT1 TPU codec — chunk-parallel encode/decode in pure-JAX/XLA.
+"""LZNT1 device codec — chunk-parallel encode/decode in JAX.
 
 Capability parity: reference ``src/lznt1_compress.cpp`` /
 ``src/lznt1_decompress.cpp`` + ``LZNT1Dictionary.h`` (SURVEY.md §2 rows 3,
 7; mount unavailable — format per [MS-XCA] §2.5, SURVEY.md §8.1).
 
-TPU-first design.  Measured cost model on TPU v5e (see git history): the
-chip has no hardware gather/scatter, so
-  * ``lax.scan`` over a step-major operand streams at ~20ns/step — cheap
-    sequential structure,
-  * one-shot batched ``take_along_axis`` runs at ~0.05ms per [2048,4096]
-    gather — cheap random reads,
-  * ANY scatter costs 3–55ms (plus minutes of compile time) — forbidden,
-  * per-row dynamic gathers inside loops cost ~67µs/step — forbidden.
+The design is data-parallel over chunks and scatter-free (it was first
+built for a machine without hardware scatter; ROADMAP §3.1/§3.3 revisit
+that on the GPU).  Every stage is built from lane-scans, rolls, one-shot
+gathers, row-wise binary search and a few XLA sorts:
 
-Consequently every stage here is built from scans, rolls, one-shot
-gathers, row-wise binary search (searchsorted as 13 unrolled gathers) and
-at most two XLA sorts; there are NO scatters anywhere:
-
-* Decode: a byte-per-step lockstep ``lax.scan`` walks all chunks' token
+* Decode: a byte-per-step lockstep walk (kernels/lane_scan: one Triton
+  kernel on the GPU, ``lax.scan`` elsewhere) steps all chunks' token
   streams simultaneously (uniform step index ⇒ the payload byte arrives
-  as a scan operand, not a gather).  It emits a monotone record stream
+  as a step operand, not a gather).  It emits a monotone record stream
   (token start position + literal byte / copy displacement, with carry
   replication on idle steps).  Each output byte then finds its governing
   token by binary search, and copy chains resolve in O(log 4096) rounds
@@ -30,8 +23,8 @@ at most two XLA sorts; there are NO scatters anywhere:
   (sort (hash,pos) with carried positions; neighbors in sort order are
   the most recent same-hash candidates; a second sort restores position
   order — the scatter-free inverse permutation).  Greedy parse commits in
-  one forward scan; token/flag-byte layout is recovered gather-side: each
-  payload byte position binary-searches the token whose bytes cover it.
+  one forward cursor walk; the token/flag-byte layout follows from
+  prefix sums and monotone placements.
 """
 
 from __future__ import annotations
@@ -43,9 +36,10 @@ import jax.numpy as jnp
 from jax import lax
 
 from ..errors import DataError
-from ..util import pallas_mode
+from ..kernels.lane_scan import lane_scan
 from ..kernels.common import (
     extend_saturated,
+    greedy_commit,
     hash_best_match,
     fill_records_delta,
     place_monotone,
@@ -93,88 +87,83 @@ D_SHIFT_TABLE = (12 - _SHIFTS).astype(np.int32)
 _COPY_BIT = 1 << 20  # record-value flag: copy record (else literal byte)
 
 
-@jax.jit
-def decode_batch(payload, plen, is_comp):
+def _mk(c):
+    return c.astype(jnp.int32)
+
+
+def _parse_step(carry, x, s, consts, take):
+    """One payload byte of every chunk's token walk (lane_scan body).
+
+    Emits a monotone record stream: token start position + literal byte
+    / copy displacement, carry-replicated on idle steps."""
+    p, flags, nflags, expect_hi, pend_lo, rpos, rval, err = carry
+    (b,) = x
+    plen, is_comp = consts
+    active = (is_comp != 0) & (s < plen) & (p < CHUNK)
+    expect = expect_hi != 0
+    start_flag = active & ~expect & (nflags == 0)
+    in_tok = active & ~start_flag
+    bit = (flags & 1) != 0
+    is_lit = in_tok & ~expect & ~bit
+    is_lo = in_tok & ~expect & bit
+    is_hi = in_tok & expect
+    tok = pend_lo | (b << 8)
+    l_mask, d_shift = _dsplit(p)
+    length = (tok & l_mask) + MIN_MATCH
+    disp = (tok >> d_shift) + 1
+    err = err | _mk(is_hi & ((disp > p) | (p + length > CHUNK)))
+    rpos = jnp.where(is_lit | is_hi, p, rpos)
+    rval = jnp.where(is_lit, b, jnp.where(is_hi, _COPY_BIT | disp, rval))
+    p = p + jnp.where(
+        is_lit, 1, jnp.where(is_hi, jnp.minimum(length, CHUNK - p), 0))
+    flags = jnp.where(
+        start_flag, b, jnp.where(is_lit | is_lo, flags >> 1, flags))
+    nflags = jnp.where(
+        start_flag, 8, jnp.where(is_lit | is_lo, nflags - 1, nflags))
+    pend_lo = jnp.where(is_lo, b, pend_lo)
+    expect_hi = jnp.where(is_lo, 1, jnp.where(is_hi, 0, expect_hi))
+    return (p, flags, nflags, expect_hi, pend_lo, rpos, rval, err), (
+        rpos, rval)
+
+
+def parse_records(payload, plen, is_comp, impl=None):
+    """Byte-per-step lockstep walk of all chunks' token streams (uniform
+    step index, so each payload byte arrives as a step operand, not a
+    gather).  Returns (rec_pos [N, P], rec_val [N, P], p_final [N],
+    err [N] bool)."""
+    N, P = payload.shape
+    z = jnp.zeros(N, jnp.int32)
+    init = (z, z, z, z, z, jnp.full((N,), -1, jnp.int32), z, z)
+    carry, ys = lane_scan(_parse_step, init, (payload.T,),
+                          consts=(plen, is_comp.astype(jnp.int32)),
+                          impl=impl)
+    p_final, expect_hi_f, err = carry[0], carry[3], carry[7]
+    err = (err != 0) | (is_comp & (expect_hi_f != 0))  # ended mid-token
+    return ys[:, 0, :].T, ys[:, 1, :].T, p_final, err
+
+
+def decode_batch_impl(payload, plen, is_comp, impl=None):
     """Decode a batch of LZNT1 chunk payloads (headers already stripped).
 
     Args:
       payload: [N, PAYLOAD_PAD] int32 — per-chunk payload bytes, zero-padded.
       plen:    [N] int32 — true payload byte length.
       is_comp: [N] bool — compressed flag from each chunk header.
+      impl:    lane_scan implementation (None: chosen by platform).
 
     Returns:
       out:     [N, CHUNK] int32 decoded bytes
       out_len: [N] int32 decoded length per chunk
       err:     [N] bool malformed-stream flag
     """
-    N, P = payload.shape
-    kmode = pallas_mode("TPUCOMP_LZNT1_PALLAS")
-    if kmode is not None:
-        from ..kernels import lznt1_pallas
-
-        rec_pos, rec_val, p_final, errk = lznt1_pallas.parse_records(
-            payload, plen, is_comp, CHUNK,
-            interpret=(kmode == "interpret"))
-        err = errk != 0
-        return _records_to_output(
-            rec_pos, rec_val, p_final, err, payload, plen, is_comp, N)
-    bytes_T = payload.T  # [P, N] step-major scan operand
-    steps = jnp.arange(P, dtype=jnp.int32)
-
-    def step(carry, xs):
-        p, flags, nflags, expect_hi, pend_lo, rpos, rval, err = carry
-        b, s = xs
-        active = is_comp & (s < plen) & (p < CHUNK)
-        start_flag = active & ~expect_hi & (nflags == 0)
-        in_tok = active & ~start_flag
-        bit = flags & 1
-        is_lit = in_tok & ~expect_hi & (bit == 0)
-        is_lo = in_tok & ~expect_hi & (bit == 1)
-        is_hi = in_tok & expect_hi
-        tok = pend_lo | (b << 8)
-        l_mask, d_shift = _dsplit(p)
-        length = (tok & l_mask) + MIN_MATCH
-        disp = (tok >> d_shift) + 1
-        err = err | (is_hi & ((disp > p) | (p + length > CHUNK)))
-        rpos = jnp.where(is_lit | is_hi, p, rpos)
-        rval = jnp.where(
-            is_lit, b, jnp.where(is_hi, _COPY_BIT | disp, rval)
-        )
-        p = p + jnp.where(
-            is_lit, 1, jnp.where(is_hi, jnp.minimum(length, CHUNK - p), 0)
-        )
-        flags = jnp.where(
-            start_flag, b, jnp.where(is_lit | is_lo, flags >> 1, flags)
-        )
-        nflags = jnp.where(
-            start_flag, 8, jnp.where(is_lit | is_lo, nflags - 1, nflags)
-        )
-        pend_lo = jnp.where(is_lo, b, pend_lo)
-        expect_hi = jnp.where(is_lo, True, jnp.where(is_hi, False, expect_hi))
-        return (p, flags, nflags, expect_hi, pend_lo, rpos, rval, err), (
-            rpos,
-            rval,
-        )
-
-    z = jnp.zeros(N, jnp.int32)
-    init = (
-        z,  # p
-        z,  # flags
-        z,  # nflags
-        jnp.zeros(N, jnp.bool_),  # expect_hi
-        z,  # pend_lo
-        jnp.full((N,), -1, jnp.int32),  # rpos (record carry)
-        z,  # rval
-        jnp.zeros(N, jnp.bool_),  # err
-    )
-    carry, (rec_pos_T, rec_val_T) = lax.scan(step, init, (bytes_T, steps))
-    p_final, _, _, expect_hi_f, _, _, _, err = carry
-    err = err | (is_comp & expect_hi_f)  # stream ended mid-token
-
-    rec_pos = rec_pos_T.T  # [N, P]; monotone non-decreasing (carry-replicated)
-    rec_val = rec_val_T.T
+    N = payload.shape[0]
+    rec_pos, rec_val, p_final, err = parse_records(
+        payload, plen, is_comp, impl)
     return _records_to_output(
         rec_pos, rec_val, p_final, err, payload, plen, is_comp, N)
+
+
+decode_batch = jax.jit(decode_batch_impl, static_argnames="impl")
 
 
 def _records_to_output(rec_pos, rec_val, p_final, err, payload, plen,
@@ -187,15 +176,8 @@ def _records_to_output(rec_pos, rec_val, p_final, err, payload, plen,
     disp_j = vpack & (_COPY_BIT - 1)
     litv = jnp.where(is_copy_j, 0, vpack & 0xFF)
 
-    # --- copy-chain resolution (segment-lane scan + far sort rounds) ---
-    mode = pallas_mode("TPUCOMP_RESOLVE_PALLAS")
-    if mode is not None:
-        from ..kernels import resolve_pallas
-
-        out_comp = resolve_pallas.resolve_copies(
-            is_copy_j, disp_j, litv, interpret=(mode == "interpret"))
-    else:
-        out_comp = resolve_copies(is_copy_j, disp_j, litv)
+    # --- copy-chain resolution (near-window scan + far rounds) ---
+    out_comp = resolve_copies(is_copy_j, disp_j, litv)
 
     out = jnp.where(is_comp[:, None], out_comp, payload[:, :CHUNK])
     out_len = jnp.where(is_comp, p_final, jnp.minimum(plen, CHUNK))
@@ -210,8 +192,7 @@ def _records_to_output(rec_pos, rec_val, p_final, err, payload, plen,
 _RUN_DISPS = (1, 2, 3)  # exact-length small displacements (RLE, periods)
 
 
-@jax.jit
-def encode_batch(chunks, clen):
+def encode_batch_impl(chunks, clen, impl=None):
     """Encode a batch of ≤4096-byte chunks into LZNT1 token payloads.
 
     Args:
@@ -264,60 +245,25 @@ def encode_batch(chunks, clen):
     best_len = jnp.minimum(best_len, max_here)
     is_match = (best_len >= MIN_MATCH) & (pos + MIN_MATCH <= in_len)
 
-    # ---- greedy commit + stream layout in ONE forward scan ----
+    # ---- greedy commit (lane-scan cursor walk) + layout prefix sums ----
     # Lazy matching: defer a match when the NEXT position has a strictly
     # longer one (standard 1-step lazy heuristic; still a valid parse).
-    step_adv = jnp.where(is_match, best_len, 1)
     next_bl = jnp.concatenate(
         [best_len[:, 1:], jnp.zeros((N, 1), jnp.int32)], axis=1
     )
-    lazy = is_match & (next_bl > best_len)
-    use_match = is_match & ~lazy
-
-    kmode = pallas_mode("TPUCOMP_COMMIT_PALLAS")
-    if kmode is not None:
-        # in-kernel walk emits the layout prefix sums too: the fused
-        # XLA commit+layout scan below cost ~30 of 54 ms at N=2048
-        from ..kernels import lz_pallas
-
-        committed, t_after, data_before = lz_pallas.greedy_commit_layout(
-            use_match, best_len, pos < in_len,
-            interpret=(kmode == "interpret"))
-        T_total = t_after[:, -1]
-        last_c = committed[:, -1].astype(jnp.int32)
-        data_total = (data_before[:, -1] + last_c
-                      + last_c * use_match[:, -1].astype(jnp.int32))
-    else:
-        def fwd_step(carry, xs):
-            nc, tcnt, dbytes = carry
-            pcol, adv, ismatch, okpos = xs
-            commit = (pcol == nc) & okpos
-            nc2 = jnp.where(commit, pcol + jnp.where(ismatch, adv, 1), nc)
-            iscp = commit & ismatch
-            t_after = tcnt + commit.astype(jnp.int32)
-            d_after = dbytes + jnp.where(iscp, 2, commit.astype(jnp.int32))
-            return (nc2, t_after, d_after), (commit, iscp, t_after, dbytes)
-
-        pcols = pos.T  # [n, N]
-        xs = (
-            pcols,
-            step_adv.T,
-            use_match.T,
-            (pos < in_len).T,
-        )
-        init = (jnp.zeros(N, jnp.int32), jnp.zeros(N, jnp.int32),
-                jnp.zeros(N, jnp.int32))
-        (nc_f, T_total, data_total), ys = lax.scan(fwd_step, init, xs)
-        committed_T, _, t_after_T, data_before_T = ys
-        committed = committed_T.T  # [N, n]
-        t_after = t_after_T.T  # tokens committed up to and including p
-        data_before = data_before_T.T
+    use_match = is_match & ~(next_bl > best_len)
+    committed = greedy_commit(use_match, best_len, pos < in_len, impl=impl)
+    tok_sz = jnp.where(committed & use_match, 2, committed.astype(jnp.int32))
+    t_after = jnp.cumsum(committed.astype(jnp.int32), axis=1)
+    d_cum = jnp.cumsum(tok_sz, axis=1)
+    data_before = d_cum - tok_sz
+    T_total = t_after[:, -1]
+    data_total = d_cum[:, -1]
 
     # ---- byte assembly: the stream is a partition (each payload byte
     # written exactly once) and every record stream is sorted by its
     # target position, so the whole layout is monotone placements
-    # (compact+expand log-depth passes — see kernels.common; the earlier
-    # one-hot MXU scatters paid records x payload-width MACs).
+    # (compact+expand log-depth passes — see kernels.common).
     # Committed position p is token t = t_after[p]-1 in group t>>3; its
     # first byte sits at (t>>3 + 1) + data_before[p] (one flag byte per
     # started group precedes the group's data bytes).
@@ -356,6 +302,9 @@ def encode_batch(chunks, clen):
     plen = jnp.where(T_total > 0, ngroups + data_total, 0)
     payload = jnp.where(bq < plen[:, None], val, 0)
     return payload, plen
+
+
+encode_batch = jax.jit(encode_batch_impl, static_argnames="impl")
 
 
 # --------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Plain-Xpress TPU codec — unit-parallel encode/decode in pure-JAX/XLA.
+"""Plain-Xpress device codec — unit-parallel encode/decode in JAX.
 
 Capability parity: reference ``src/xpress_compress.cpp`` /
 ``src/xpress_decompress.cpp`` + ``XpressDictionary.h`` (SURVEY.md §2 row 4;
@@ -6,29 +6,32 @@ mount unavailable — format per [MS-XCA] §2.3–2.4, SURVEY.md §8.2).
 
 Parallel model: plain Xpress is the one truly sequential format (single
 flag/nibble stream, matches reach the whole preceding buffer — SURVEY.md
-§5): a foreign single-stream buffer cannot be split.  The TPU path
+§5): a foreign single-stream buffer cannot be split.  The device path
 therefore operates on batches of INDEPENDENT units (fixed-size segments
 produced by this framework's batch/dist API, each a complete valid Xpress
 stream; matches confined within the unit).  Foreign one-shot streams take
-the sequential oracle/CPU path.  Same TPU cost-model rules as
-tpucomp/codecs/lznt1.py: scans + one-shot gathers + sorts; no scatters.
+the sequential oracle/CPU path.  Same data-parallel design as
+tpucomp/codecs/lznt1.py: lane-scans + one-shot gathers + sorts; no
+scatters.
 
-Decode: a byte-per-step ``lax.scan`` drives a 14-state machine per unit
+Decode: a byte-per-step lane-scan (kernels/lane_scan) drives a 14-state
+machine per unit
 lane (flag-word bytes ×4, token start, match-hi, shared nibble, byte /
 u16 / u32 length escapes), emitting a monotone token-record stream; output
 bytes bind to records by binary search and copy chains resolve by pointer
 doubling.
 
 Encode: shared match kernels (tpucomp.kernels.common) with the 8192-byte
-window; the greedy commit scan additionally threads the SHARED-NIBBLE
-state (escape nibbles pack two-per-byte across tokens; the high nibble of
-an earlier token's escape byte belongs to a LATER token), and the payload
-is assembled gather-side: each output byte position classifies itself as
-flag-word byte / token byte / nibble byte / escape byte via binary
-searches over the monotone offset tables.
+window; after the greedy commit walk the SHARED-NIBBLE state (escape
+nibbles pack two-per-byte across tokens; the high nibble of an earlier
+token's escape byte belongs to a LATER token) and every byte offset
+follow from prefix sums over the committed parse, and the payload is
+assembled with monotone placements.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 
@@ -37,7 +40,7 @@ import jax.numpy as jnp
 from jax import lax
 
 from ..errors import ArgError, DataError
-from ..util import pad_batch, pallas_mode
+from ..util import pad_batch
 from ..kernels.common import (
     extend_saturated,
     hash_best_match,
@@ -49,10 +52,11 @@ from ..kernels.common import (
     run_matchlens,
     scatter_sorted_or,
 )
+from ..kernels.lane_scan import lane_scan
 
 MIN_MATCH = 3
 WINDOW = 8192
-UNIT = 65536  # default independent-unit size for the batched TPU path
+UNIT = 65536  # default independent-unit size for the batched device path
 
 
 def max_payload(u: int) -> int:
@@ -80,7 +84,7 @@ _M_U32_0, _M_U32_1, _M_U32_2, _M_U32_3 = 10, 11, 12, 13
 _COPY_BIT = 1 << 20
 
 
-def make_decoder(u: int, mode=None, jitter=None, fast_resolve=False):
+def make_decoder(u: int, jitter=None, fast_resolve=False):
     """Build a jitted decoder for unit capacity ``u``.
 
     Args (of the returned function):
@@ -90,8 +94,6 @@ def make_decoder(u: int, mode=None, jitter=None, fast_resolve=False):
                the format carries no size header — [MS-XCA] §2.4).
     Returns (out [N, u], err [N]).
 
-    ``mode``: None = XLA scan; "tpu"/"interpret" = Pallas parse kernel
-    (kernels.xp_pallas) with the same record stream and shared tail.
     ``jitter``: jit factory (default jax.jit) — dist.ShardedCodec passes
     a mesh-sharded one (batch dim partitioned over ('data',)).
     """
@@ -102,172 +104,162 @@ def make_decoder(u: int, mode=None, jitter=None, fast_resolve=False):
         raise ArgError("xpress unit_size must be <= 65536")
 
     def dec(payload, plen, out_len):
-        return _decode_impl(payload, plen, out_len, u, mode,
+        return _decode_impl(payload, plen, out_len, u,
                             fast_resolve=fast_resolve)
 
     return (jitter or jax.jit)(dec)
 
 
-def _decode_impl(payload, plen, out_len, U, mode=None, fast_resolve=False):
-    N, P = payload.shape
-    if mode is not None:
-        from ..kernels import xp_pallas
+# The step body uses int32 0/1 MASKS instead of bools: the mode
+# predicates partition active lanes, so selects become masked sums.
+def _m(c):
+    return c.astype(jnp.int32)
 
-        rec_pos, rec_val, p_final, errk = xp_pallas.parse_records(
-            payload, plen, out_len, U, interpret=(mode == "interpret"))
-        return _records_to_output(rec_pos, rec_val, p_final, errk,
-                                  out_len, N, U, mode,
-                                  fast_resolve=fast_resolve)
-    bytes_T = payload.T
-    steps = jnp.arange(P, dtype=jnp.int32)
 
-    # The scan body uses int32 0/1 MASKS instead of bool arrays throughout:
-    # measured on this chip, bool-typed scan intermediates cost ~3.4x in
-    # runtime and ~100x in compile time (sub-tile bool layouts).  The mode
-    # predicates partition active rows, so selects become masked sums.
-    def m(c):
-        return c.astype(jnp.int32)
+def _sel(mk, a, b):  # mk in {0,1}: mk ? a : b (exact int arithmetic)
+    return b + mk * (a - b)
 
-    def sel(mk, a, b):  # mk in {0,1}: mk ? a : b (exact int arithmetic)
-        return b + mk * (a - b)
 
-    def step(carry, xs):
-        (p, mode, flags, nflags, pend_lo, pend_len, nib_have, nib_val,
-         rpos, rval, err) = carry
-        b, s = xs
-        active = m(s < plen) * m(p < out_len)
+def _parse_step(carry, x, s, consts, take, U):
+    """One payload byte of every unit's 14-state machine (lane_scan body)."""
+    m, sel = _m, _sel
+    (p, mode, flags, nflags, pend_lo, pend_len, nib_have, nib_val,
+     rpos, rval, err) = carry
+    (b,) = x
+    plen, out_len = consts
+    active = m(s < plen) * m(p < out_len)
 
-        is_f = active * m(mode <= _M_F3)
-        is_tok = active * m(mode == _M_TOK)
-        is_hi = active * m(mode == _M_HI)
-        is_nib = active * m(mode == _M_NIB)
-        is_esc = active * m(mode == _M_ESC)
-        is_u16a = active * m(mode == _M_U16_0)
-        is_u16b = active * m(mode == _M_U16_1)
-        is_u32nd = active * m(mode >= _M_U32_0) * m(mode < _M_U32_3)
-        is_u32d = active * m(mode == _M_U32_3)
+    is_f = active * m(mode <= _M_F3)
+    is_tok = active * m(mode == _M_TOK)
+    is_hi = active * m(mode == _M_HI)
+    is_nib = active * m(mode == _M_NIB)
+    is_esc = active * m(mode == _M_ESC)
+    is_u16a = active * m(mode == _M_U16_0)
+    is_u16b = active * m(mode == _M_U16_1)
+    is_u32nd = active * m(mode >= _M_U32_0) * m(mode < _M_U32_3)
+    is_u32d = active * m(mode == _M_U32_3)
 
-        # ---- flag word accumulation (LE bytes; consumed MSB-first) ----
-        flags = sel(is_f, flags | (b << ((mode & 3) * 8)), flags)
-        f_done = active * m(mode == _M_F3)
-        nflags = sel(f_done, jnp.int32(32), nflags)
+    # ---- flag word accumulation (LE bytes; consumed MSB-first) ----
+    flags = sel(is_f, flags | (b << ((mode & 3) * 8)), flags)
+    f_done = active * m(mode == _M_F3)
+    nflags = sel(f_done, jnp.int32(32), nflags)
 
-        bit = (flags >> 31) & 1
-        is_lit = is_tok * m(bit == 0)
-        is_lo = is_tok * m(bit == 1)
+    bit = (flags >> 31) & 1
+    is_lit = is_tok * m(bit == 0)
+    is_lo = is_tok * m(bit == 1)
 
-        # ---- match hi: offset + short length, maybe complete ----
-        tok = pend_lo | (b << 8)
-        L0 = tok & 7
-        hi_short = is_hi * m(L0 < 7)  # complete now, len = L0 + 3
-        hi_esc = is_hi * m(L0 == 7)
-        # second nibble use completes (or escalates) without a byte
-        use_stored = hi_esc * nib_have
-        stored_lt15 = use_stored * m(nib_val < 15)
-        stored_esc = use_stored * m(nib_val == 15)
-        need_nib = hi_esc * (1 - nib_have)
+    # ---- match hi: offset + short length, maybe complete ----
+    tok = pend_lo | (b << 8)
+    L0 = tok & 7
+    hi_short = is_hi * m(L0 < 7)  # complete now, len = L0 + 3
+    hi_esc = is_hi * m(L0 == 7)
+    # second nibble use completes (or escalates) without a byte
+    use_stored = hi_esc * nib_have
+    stored_lt15 = use_stored * m(nib_val < 15)
+    stored_esc = use_stored * m(nib_val == 15)
+    need_nib = hi_esc * (1 - nib_have)
 
-        # ---- nibble byte ----
-        nib_lo = b & 0xF
-        nib_done = is_nib * m(nib_lo < 15)
-        nib_esc = is_nib * m(nib_lo == 15)
+    # ---- nibble byte ----
+    nib_lo = b & 0xF
+    nib_done = is_nib * m(nib_lo < 15)
+    nib_esc = is_nib * m(nib_lo == 15)
 
-        # ---- escape byte / u16 / u32 ----
-        esc_done = is_esc * m(b < 255)
-        esc_u16 = is_esc * m(b == 255)
-        u16v = pend_len | (b << 8)
-        u16_zero = is_u16b * m(u16v == 0)
-        u16_done = is_u16b * m(u16v != 0)
-        u32v = pend_len | (b << 24)
-        u32_done = is_u32d
+    # ---- escape byte / u16 / u32 ----
+    esc_done = is_esc * m(b < 255)
+    esc_u16 = is_esc * m(b == 255)
+    u16v = pend_len | (b << 8)
+    u16_zero = is_u16b * m(u16v == 0)
+    u16_done = is_u16b * m(u16v != 0)
+    u32v = pend_len | (b << 24)
+    u32_done = is_u32d
 
-        # completion paths are mutually exclusive: masked sum
-        m_len = (
-            hi_short * (L0 + MIN_MATCH)
-            + stored_lt15 * (nib_val + 7 + MIN_MATCH)
-            + nib_done * (nib_lo + 7 + MIN_MATCH)
-            + esc_done * (b + 22 + MIN_MATCH)
-            + u16_done * (u16v + MIN_MATCH)
-            + u32_done * (u32v + MIN_MATCH)
-        )
-        m_done = hi_short | stored_lt15 | nib_done | esc_done | u16_done | u32_done
-        err = err | (u16_done * m(u16v < 22)) | (u32_done * m(u32v < 22))
-
-        # shared-nibble state: first use stores the high nibble
-        nib_have = sel(is_nib, jnp.int32(1), sel(use_stored, jnp.int32(0), nib_have))
-        nib_val = sel(is_nib, b >> 4, nib_val)
-
-        # pending offset survives across escape bytes (is_hi stores the
-        # full token, so (pend_lo >> 3) + 1 is the offset from then on)
-        pend_lo = sel(is_lo, b, sel(is_hi, tok, pend_lo))
-        m_off = (pend_lo >> 3) + 1
-
-        pend_len = sel(
-            is_u16a | (active * m(mode == _M_U32_0)), b,
-            sel(
-                active * m(mode == _M_U32_1), pend_len | (b << 8),
-                sel(active * m(mode == _M_U32_2), pend_len | (b << 16), pend_len),
-            ),
-        )
-
-        # ---- records + output advance ----
-        err = err | (m_done * (m(m_off > p) | m(p + m_len > out_len)))
-        rec_new = is_lit | m_done
-        rpos = sel(rec_new, p, rpos)
-        rval = sel(is_lit, b, sel(m_done, _COPY_BIT | m_off, rval))
-        p = jnp.minimum(p + is_lit + m_done * m_len, U)
-
-        # ---- flag-bit consumption on token completion ----
-        flags = sel(rec_new, flags << 1, flags)  # int32 wraps mod 2^32
-        nflags = nflags - rec_new
-
-        # ---- next mode: exclusive-mask sum over the partition ----
-        mode2 = (
-            is_f * sel(f_done, jnp.int32(_M_TOK), mode + 1)
-            + is_lit * _M_TOK
-            + is_lo * _M_HI
-            + need_nib * _M_NIB
-            + (stored_esc | nib_esc) * _M_ESC
-            + esc_u16 * _M_U16_0
-            + is_u16a * _M_U16_1
-            + u16_zero * _M_U32_0
-            + is_u32nd * (mode + 1)
-            + m_done * _M_TOK
-            + (1 - active) * mode
-        )
-        # fresh flag word when the group is exhausted (_M_F0 == 0)
-        fresh = rec_new * m(nflags == 0) * m(mode2 == _M_TOK)
-        mode2 = mode2 * (1 - fresh)
-        flags = flags * m(mode2 != _M_F0)
-
-        return (
-            (p, mode2, flags, nflags, pend_lo, pend_len, nib_have, nib_val,
-             rpos, rval, err),
-            (rpos, rval),
-        )
-
-    z = jnp.zeros(N, jnp.int32)
-    init = (
-        z,                              # p
-        z,                              # mode (= _M_F0)
-        z,                              # flags
-        z,                              # nflags
-        z,                              # pend_lo
-        z,                              # pend_len
-        z,                              # nib_have (int mask)
-        z,                              # nib_val
-        jnp.full((N,), -1, jnp.int32),  # rpos
-        z,                              # rval
-        z,                              # err (int mask)
+    # completion paths are mutually exclusive: masked sum
+    m_len = (
+        hi_short * (L0 + MIN_MATCH)
+        + stored_lt15 * (nib_val + 7 + MIN_MATCH)
+        + nib_done * (nib_lo + 7 + MIN_MATCH)
+        + esc_done * (b + 22 + MIN_MATCH)
+        + u16_done * (u16v + MIN_MATCH)
+        + u32_done * (u32v + MIN_MATCH)
     )
-    carry, (rec_pos_T, rec_val_T) = lax.scan(step, init, (bytes_T, steps))
-    return _records_to_output(rec_pos_T.T, rec_val_T.T, carry[0],
-                              carry[-1], out_len, N, U,
-                              fast_resolve=fast_resolve)
+    m_done = hi_short | stored_lt15 | nib_done | esc_done | u16_done | u32_done
+    err = err | (u16_done * m(u16v < 22)) | (u32_done * m(u32v < 22))
+
+    # shared-nibble state: first use stores the high nibble
+    nib_have = sel(is_nib, jnp.int32(1), sel(use_stored, jnp.int32(0), nib_have))
+    nib_val = sel(is_nib, b >> 4, nib_val)
+
+    # pending offset survives across escape bytes (is_hi stores the
+    # full token, so (pend_lo >> 3) + 1 is the offset from then on)
+    pend_lo = sel(is_lo, b, sel(is_hi, tok, pend_lo))
+    m_off = (pend_lo >> 3) + 1
+
+    pend_len = sel(
+        is_u16a | (active * m(mode == _M_U32_0)), b,
+        sel(
+            active * m(mode == _M_U32_1), pend_len | (b << 8),
+            sel(active * m(mode == _M_U32_2), pend_len | (b << 16), pend_len),
+        ),
+    )
+
+    # ---- records + output advance ----
+    err = err | (m_done * (m(m_off > p) | m(p + m_len > out_len)))
+    rec_new = is_lit | m_done
+    rpos = sel(rec_new, p, rpos)
+    rval = sel(is_lit, b, sel(m_done, _COPY_BIT | m_off, rval))
+    p = jnp.minimum(p + is_lit + m_done * m_len, U)
+
+    # ---- flag-bit consumption on token completion ----
+    flags = sel(rec_new, flags << 1, flags)  # int32 wraps mod 2^32
+    nflags = nflags - rec_new
+
+    # ---- next mode: exclusive-mask sum over the partition ----
+    mode2 = (
+        is_f * sel(f_done, jnp.int32(_M_TOK), mode + 1)
+        + is_lit * _M_TOK
+        + is_lo * _M_HI
+        + need_nib * _M_NIB
+        + (stored_esc | nib_esc) * _M_ESC
+        + esc_u16 * _M_U16_0
+        + is_u16a * _M_U16_1
+        + u16_zero * _M_U32_0
+        + is_u32nd * (mode + 1)
+        + m_done * _M_TOK
+        + (1 - active) * mode
+    )
+    # fresh flag word when the group is exhausted (_M_F0 == 0)
+    fresh = rec_new * m(nflags == 0) * m(mode2 == _M_TOK)
+    mode2 = mode2 * (1 - fresh)
+    flags = flags * m(mode2 != _M_F0)
+
+    return (
+        (p, mode2, flags, nflags, pend_lo, pend_len, nib_have, nib_val,
+         rpos, rval, err),
+        (rpos, rval),
+    )
+
+
+def parse_records(payload, plen, out_len, U, impl=None):
+    """Byte-per-step lockstep walk of every unit's token stream.
+    Returns (rec_pos [N, P], rec_val [N, P], p_final [N], err [N] int)."""
+    N = payload.shape[0]
+    z = jnp.zeros(N, jnp.int32)
+    init = (z, z, z, z, z, z, z, z, jnp.full((N,), -1, jnp.int32), z, z)
+    carry, ys = lane_scan(functools.partial(_parse_step, U=U), init,
+                          (payload.T,), consts=(plen, out_len), impl=impl)
+    return ys[:, 0, :].T, ys[:, 1, :].T, carry[0], carry[-1]
+
+
+def _decode_impl(payload, plen, out_len, U, fast_resolve=False, impl=None):
+    N = payload.shape[0]
+    rec_pos, rec_val, p_final, errk = parse_records(
+        payload, plen, out_len, U, impl)
+    return _records_to_output(rec_pos, rec_val, p_final, errk, out_len,
+                              N, U, fast_resolve=fast_resolve)
 
 
 def _records_to_output(rec_pos, rec_val, p_final, errk, out_len, N, U,
-                       mode=None, fast_resolve=False):
+                       fast_resolve=False):
     """Shared decode tail: monotone token records -> output bytes."""
     j = jnp.broadcast_to(jnp.arange(U, dtype=jnp.int32)[None, :], (N, U))
     vpack, tokpos, _ = fill_records_delta2(rec_pos, rec_val, U)
@@ -283,32 +275,22 @@ def _records_to_output(rec_pos, rec_val, p_final, errk, out_len, N, U,
     litv = jnp.where(is_copy_j, 0, vpack & 0xFF)
     # max_hop = the format's 8 KiB window ([MS-XCA] §2.3): the far
     # rounds can then use overlapped segment tables that contain every
-    # parse-emitted source (kernels/common._far_level_overlapped).
-    # OFF by default: A/B on 16 MB of cap-32 resolved streams (r5)
-    # measured the overlapped schedule at 0.034/0.042 GB/s vs
-    # 0.084/0.093 for the segmented one — set TPUCOMP_XP_OVERLAP=1 to
-    # re-test after kernel work (read at trace time).
+    # parse-emitted source (kernels/common._far_level_overlapped).  OFF
+    # by default (it measured slower than the segmented schedule); set
+    # TPUCOMP_XP_OVERLAP=1 to re-test it (read at trace time).
     import os as _os
 
     WIN = (WINDOW if _os.environ.get("TPUCOMP_XP_OVERLAP", "0") == "1"
            else None)
     # full-row probe rounds are OFF for xpress regardless of
-    # fast_resolve: the r5 archive profile (overlap model, chain cap
-    # 32 — tpucomp_native.c RW_XP_CHAIN_CAP) bounds chains the ADOPTIVE
-    # doubling rounds resolve in ceil(log2(32))+1 cond-driven rounds;
-    # depth-2 value-chase probes cannot clear them, and A/B on 16 MB of
-    # cap-32 streams measured the two probe rounds as pure waste
-    # (archive-with-probes 0.084 GB/s < plain-without 0.093).  Probes
-    # are semantics-preserving, so r4-era depth-bounded streams still
-    # decode bit-exactly on this path.
+    # fast_resolve: the archive profile (overlap model, chain cap 32 —
+    # tpucomp_native.c RW_XP_CHAIN_CAP) bounds chains the ADOPTIVE
+    # doubling rounds resolve in ceil(log2(32))+1 cond-driven rounds,
+    # which depth-2 value-chase probes cannot clear.  Probes are
+    # semantics-preserving, so depth-bounded streams still decode
+    # bit-exactly on this path.
     del fast_resolve
-    if mode is not None and U % 128 == 0:
-        from ..kernels import resolve_pallas
-
-        out = resolve_pallas.resolve_copies(
-            is_copy_j, disp_j, litv, interpret=(mode == "interpret"),
-            fast=False, max_hop=WIN)
-    elif U >= 8192 and U % 16 == 0:
+    if U >= 8192 and U % 16 == 0:
         out = resolve_copies_wide(is_copy_j, disp_j, litv,
                                   fast=False, max_hop=WIN)
     else:
@@ -348,7 +330,7 @@ def _match_extra_sizes(L, opens):
     return sz, nib_user, rem, big
 
 
-def _encode_impl(units, ulen, U):
+def _encode_impl(units, ulen, U, impl=None):
     N, n = units.shape
     assert n == U
     pos = jnp.broadcast_to(jnp.arange(n, dtype=jnp.int32)[None, :], (N, n))
@@ -397,7 +379,7 @@ def _encode_impl(units, ulen, U):
     # The shared-nibble pairing is a prefix property: the k-th committed
     # nibble-user opens a fresh nibble byte iff k is even, so parity (and
     # every byte offset) follows from cumsums over the committed parse.
-    committed = greedy_commit(is_match, best_len, pos < in_len)
+    committed = greedy_commit(is_match, best_len, pos < in_len, impl=impl)
     iscp_pm = committed & is_match
     L_pm = best_len - MIN_MATCH
     nib_user = iscp_pm & (L_pm >= 7)
@@ -414,8 +396,8 @@ def _encode_impl(units, ulen, U):
     T_total = t_after[:, -1]
 
     # ---- byte assembly: the stream is a partition (each payload byte
-    # written exactly once), so the layout is position-major MXU
-    # scatter-adds — no token-major fills.  Committed position p is
+    # written exactly once), so the layout is monotone placements — no
+    # token-major fills.  Committed position p is
     # token t = t_after[p]-1 in flag group t>>5; its first byte sits at
     # 4*(t>>5 + 1) + data_before[p] (a 4-byte flag word per started
     # group precedes the group's data bytes).
@@ -432,8 +414,7 @@ def _encode_impl(units, ulen, U):
     # openers (even k) deposit their low nibble and their nib byte's
     # position; partners (odd k) deposit their nibble at k-1's high
     # half.  All streams are strictly increasing in their key space, so
-    # everything assembles with monotone placements (traffic-bound; the
-    # old one-hot MXU scatters paid records x width MACs).
+    # everything assembles with monotone placements (traffic-bound).
     kidx = nu_cum - 1
     is_open = nib_user & opens_pm
     is_part = nib_user & ~opens_pm
@@ -893,11 +874,10 @@ def _enc_for(u, jitter=None):
     return _ENCODERS[key]
 
 
-def _dec_for(u, mode=None, jitter=None, fast_resolve=False):
-    key = (u, mode, _jit_key(jitter), fast_resolve)
+def _dec_for(u, jitter=None, fast_resolve=False):
+    key = (u, _jit_key(jitter), fast_resolve)
     if key not in _DECODERS:
-        _DECODERS[key] = make_decoder(u, mode, jitter,
-                                      fast_resolve=fast_resolve)
+        _DECODERS[key] = make_decoder(u, jitter, fast_resolve=fast_resolve)
     return _DECODERS[key]
 
 
@@ -913,8 +893,7 @@ def compress_units(units_data, unit_size=UNIT, jitter=None, pad_to=None,
         return []
     from ..config import DEFAULT as _CFG
 
-    # cap the widest single encode dispatch (see xpress_huff: the
-    # remote AOT compiler dies on 256-row 64 KiB encode programs)
+    # cap the widest single encode dispatch (config.encode_batch_cap)
     g = pad_to or 8
     cap = max(g, (_CFG.encode_batch_cap * 65536) // unit_size // g * g)
     if pad_batch(len(units_data), pad_to) > cap:
@@ -942,13 +921,18 @@ def compress_units(units_data, unit_size=UNIT, jitter=None, pad_to=None,
     ]
 
 
-def _decode_bucket(streams, out_lens, unit_size, mode, jitter=None,
-                   pad_to=None, gather=np.asarray, fast_resolve=False):
+def decompress_units(streams, out_lens, unit_size=UNIT, jitter=None,
+                     pad_to=None, gather=np.asarray, fast_resolve=False):
+    """Decompress a batch of independent Xpress unit streams in one
+    device call (scan length: the longest stream's; the units run in
+    parallel lanes)."""
+    if not streams:
+        return []
     if any(o > unit_size for o in out_lens):
         raise ArgError("out_len larger than unit_size")
     N = pad_batch(len(streams), pad_to)
-    # scan length = padded payload width; 8 KiB buckets track the batch's
-    # real max stream size instead of the all-literals worst case
+    # scan length = padded payload width: the batch's longest stream in
+    # 8 KiB steps, not the all-literals worst case
     sizeb = max(1024, -(-max(len(s) for s in streams) // 8192) * 8192)
     P = min(max_payload(unit_size), sizeb + 16)
     payload = np.zeros((N, P), np.int32)
@@ -959,8 +943,7 @@ def _decode_bucket(streams, out_lens, unit_size, mode, jitter=None,
         a = np.frombuffer(s, np.uint8)
         payload[i, : len(a)] = a
         plen[i] = len(a)
-    out, err = _dec_for(unit_size, mode, jitter,
-                        fast_resolve=fast_resolve)(
+    out, err = _dec_for(unit_size, jitter, fast_resolve=fast_resolve)(
         jnp.asarray(payload), jnp.asarray(plen), jnp.asarray(olen)
     )
     out = gather(out)
@@ -1020,32 +1003,3 @@ def decompress(data: bytes, out_len=None) -> bytes:
         return b""
     return decompress_units(
         [bytes(data)], [out_len], unit_size=_oneshot_unit(out_len))[0]
-
-
-def decompress_units(streams, out_lens, unit_size=UNIT, jitter=None,
-                     pad_to=None, gather=np.asarray, fast_resolve=False):
-    """Decompress a batch of independent Xpress unit streams (bucketed
-    by stream size so one incompressible unit doesn't stretch every
-    unit's scan)."""
-    if not streams:
-        return []
-    mode = pallas_mode("TPUCOMP_XP_PALLAS")
-    buckets = {}
-    for i, s in enumerate(streams):
-        sizeb = max(1024, -(-len(s) // 8192) * 8192)
-        buckets.setdefault(sizeb, []).append(i)
-    results = [None] * len(streams)
-    for _sb, idxs in sorted(buckets.items()):
-        outs = _decode_bucket(
-            [streams[i] for i in idxs],
-            [out_lens[i] for i in idxs],
-            unit_size,
-            mode,
-            jitter,
-            pad_to,
-            gather,
-            fast_resolve,
-        )
-        for i, o in zip(idxs, outs):
-            results[i] = o
-    return results

@@ -1,4 +1,4 @@
-"""Xpress-Huffman TPU codec — block-parallel encode/decode in pure-JAX/XLA.
+"""Xpress-Huffman device codec — block-parallel encode/decode in JAX.
 
 Capability parity: reference ``src/xpress_huff_compress.cpp`` /
 ``src/xpress_huff_decompress.cpp`` (SURVEY.md §2 row 5; mount unavailable —
@@ -6,32 +6,33 @@ format per [MS-XCA] §2.1–2.2, SURVEY.md §8.3).
 
 Parallel model: each 64 KiB block carries its own Huffman table but block
 boundaries in a multi-block stream are only discoverable by decoding, so
-foreign multi-block streams take the sequential oracle path; the TPU path
-operates on batches of independent single-block units (this framework's
+foreign multi-block streams take a speculative span-discovery path (or
+the sequential oracle); the batched device path operates on batches of independent single-block units (this framework's
 archive manifests record unit boundaries — SURVEY.md §5 long-context
 note).  Every unit stream is a standard [MS-XCA] block, decodable by any
 conforming decoder.
 
 Decode: the 256-byte table prefix is unpacked vectorized; canonical
 decoding is ARITHMETIC (per-level first-code/limit/base-rank vectors from
-tpucomp.kernels.huffman) — no 32 K LUT.  A byte-per-step lockstep scan
-drives the bit window (two-u16 prime, refill-below-16 — [MS-XCA] §2.2.4
-discipline, refills interleave with escape bytes exactly as the spec
-reader does); each step decodes up to SUBSTEPS symbols, mapping canonical
-rank -> symbol through a one-hot select over the per-block [512] table
-(the only per-row "lookup"; small enough to be pure VPU arithmetic).
-Copy resolution reuses kernels.common.resolve_copies.
+tpucomp.kernels.huffman) — no 32 K LUT.  A byte-per-step lockstep
+lane-scan (kernels/lane_scan) drives the bit window (two-u16 prime,
+refill-below-16 — [MS-XCA] §2.2.4 discipline, refills interleave with
+escape bytes exactly as the spec reader does); each step decodes up to
+SUBSTEPS symbols, reading level -> (first code, base rank) and canonical
+rank -> symbol from the block's own tables (per-lane gather loads in the
+GPU kernel).  Copy resolution reuses kernels.common.resolve_copies*.
 
 Encode: shared match kernels; histogram via one-hot matmul bincount;
 device Huffman (two-queue + 15-bit repair + canonical); a closed-form
 layout reproduces the lazy-flush 16-bit-LE word writer bit-for-bit —
 bit-field and byte-slot positions are a partition of the stream, so
-word values and the final body assemble with MXU scatter-adds
-(disjoint-bit OR == ADD) plus one delta-fill for the escape-byte
-interleave shift.
+word values and the final body assemble with segmented ORs and monotone
+placements plus one delta-fill for the escape-byte interleave shift.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 
@@ -40,7 +41,7 @@ import jax.numpy as jnp
 from jax import lax
 
 from ..errors import ArgError, DataError
-from ..util import pad_batch, pallas_mode
+from ..util import pad_batch
 from ..kernels.common import (
     extend_saturated,
     hash_best_match,
@@ -55,6 +56,7 @@ from ..kernels.common import (
     run_matchlens,
     scatter_sorted_or,
 )
+from ..kernels.lane_scan import lane_scan, shl
 from ..kernels.huffman import (
     MAX_CODE_LEN,
     canonical_from_lengths,
@@ -103,9 +105,8 @@ _P_OFFSET = 1  # need obc offset bits (after refill)
 _P_ESC = 2  # need length-escape bytes (offset already read)
 
 
-def make_decoder(u: int, substeps: int = 5, mode=None, rank_cap=NUM_SYMBOLS,
-                 jitter=None, want_span=False, with_history=False,
-                 fast_resolve=False):
+def make_decoder(u: int, substeps: int = 5, jitter=None, want_span=False,
+                 with_history=False, fast_resolve=False):
     """``fast_resolve``: archive fast path — insert cheap value-chase
     probe rounds in the far resolve (kernels/common._far_probe_round).
     Built for streams from the offset-resolved encoder profile
@@ -115,268 +116,244 @@ def make_decoder(u: int, substeps: int = 5, mode=None, rank_cap=NUM_SYMBOLS,
         raise ArgError("XPRESS_HUFF units are single <= 64 KiB blocks")
 
     if with_history:
-        # history variant (XLA path only): hist [N, 64 KiB] = the last
-        # already-decoded output bytes before this block, hist_len [N] =
-        # how many are valid; back-references may reach hist_len bytes
-        # before the block start ([MS-XCA] §2.1 cross-block window)
-        assert mode is None
-
+        # hist [N, 64 KiB] = the last already-decoded output bytes before
+        # this block, hist_len [N] = how many are valid; back-references
+        # may reach hist_len bytes before the block start ([MS-XCA] §2.1
+        # cross-block window)
         def dech(payload, plen, out_len, hist, hist_len):
-            return _decode_impl(payload, plen, out_len, u, substeps, mode,
-                                rank_cap, want_span, hist, hist_len)
+            return _decode_impl(payload, plen, out_len, u, substeps,
+                                want_span, hist, hist_len)
 
         return (jitter or jax.jit)(dech)
 
     def dec(payload, plen, out_len):
-        return _decode_impl(payload, plen, out_len, u, substeps, mode,
-                            rank_cap, want_span, fast_resolve=fast_resolve)
+        return _decode_impl(payload, plen, out_len, u, substeps, want_span,
+                            fast_resolve=fast_resolve)
 
     return (jitter or jax.jit)(dec)
 
 
-def _decode_impl(payload, plen, out_len, U, SUBSTEPS, mode=None,
-                 rank_cap=NUM_SYMBOLS, want_span=False,
-                 hist=None, hist_len=None, fast_resolve=False):
-    """mode selects the parse-scan backend: None = XLA lax.scan;
-    "tpu" = Pallas kernel (kernels.xh_pallas); "interpret" = the same
-    kernel in interpreter mode (CPU tests).  The record stream and the
-    fill/resolve tail are identical across backends.
+# int32 0/1 masks throughout the step body: the byte-role predicates
+# partition active lanes, so selects become masked sums
+def _mk(c):
+    return c.astype(jnp.int32)
 
-    ``want_span`` (XLA scan only): additionally return the exact byte
-    span of the decoded block body per the writer's lazy-flush layout
-    (oracle ``_block_byte_span``: 2*(2 + max(0, ceil(bits/16)-1)) +
-    raw escape bytes) — the block-boundary discovery the one-shot
-    multi-block decode needs ([MS-XCA] §2.1: boundaries are only
-    discoverable by decoding)."""
-    assert not (want_span and mode is not None)
-    N, P = payload.shape
-    lengths = _unpack_table(payload)
+
+def _sel(mask, a, bb):  # mask in {0,1}: mask ? a : bb
+    return bb + mask * (a - bb)
+
+
+# lane_scan tables read by the parse step
+_T_SYM, _T_FC, _T_BR = 0, 1, 2
+
+
+def _decode_symbol(bitbuf, fc, lim, take):
+    """Arithmetic canonical decode from the top 15 window bits.
+    Returns (sym, length, found-mask)."""
+    mk, sel = _mk, _sel
+    iota16 = jnp.arange(MAX_CODE_LEN + 1, dtype=jnp.int32)[None, :]
+    peek15 = (bitbuf >> 17) & 0x7FFF
+    # level l matches when fc[l] <= peek_l < lim[l], peek_l = top l bits
+    peek_l = peek15[:, None] >> (15 - iota16)  # [L, 16]
+    okl = mk(peek_l >= fc) * mk(peek_l < lim) * mk(iota16 > 0)
+    # first matching level
+    l = jnp.min(sel(okl, iota16, jnp.int32(99)), axis=1)
+    found = mk(l <= MAX_CODE_LEN)
+    lc = jnp.minimum(l, MAX_CODE_LEN)
+    # per-lane table reads: level -> (first code, base rank), then
+    # canonical rank -> symbol
+    rank = take(_T_BR, lc) + ((peek15 >> (15 - lc)) - take(_T_FC, lc))
+    sym = take(_T_SYM, rank)
+    return sym, lc, found
+
+
+def _parse_step(carry, x, s, consts, take, U, SUBSTEPS):
+    """One body byte of every block's bit reader (lane_scan body): the
+    byte is a refill half-word or an escape byte; each completed refill
+    or escape runs up to SUBSTEPS symbol decodes."""
+    mk, sel = _mk, _sel
+    (p, mode, pend, bitbuf, bitcount, lowbyte, obc_p, lh_p, off_p,
+     len_acc, rpos, rval, err, bits_used, raw_used) = carry
+    (b,) = x
+    blen, out_len, hl, fc, lim = consts
+    active = mk(s < blen) * mk(p < out_len)
+
+    # ---- byte role ----
+    is_w0 = active * mk(mode == _M_W0)
+    is_w1 = active * mk(mode == _M_W1)
+    is_eb = active * mk(mode == _M_EB)
+    is_e16a = active * mk(mode == _M_E16A)
+    is_e16b = active * mk(mode == _M_E16B)
+    is_e32nd = active * mk(mode >= _M_E32A) * mk(mode < _M_E32D)
+    is_e32d = active * mk(mode == _M_E32D)
+
+    lowbyte = sel(is_w0, b, lowbyte)
+    # span accounting: every escape-role byte is a raw interleave byte
+    raw_used = raw_used + (is_eb | is_e16a | is_e16b | is_e32nd | is_e32d)
+    # escape u16/u32 accumulation
+    len_acc = sel(
+        is_e16a | (active * mk(mode == _M_E32A)), b,
+        sel(
+            active * mk(mode == _M_E32B), len_acc | (b << 8),
+            sel(active * mk(mode == _M_E32C), len_acc | (b << 16), len_acc),
+        ),
+    )
+
+    # word refill completes on W1
+    word = lowbyte | (b << 8)
+    bitbuf = sel(is_w1, bitbuf | shl(word, 16 - bitcount), bitbuf)
+    bitcount = bitcount + is_w1 * 16
+
+    # ---- escape completions (produce a finished match) ----
+    eb_done = is_eb * mk(b < 255)
+    eb_more = is_eb * mk(b == 255)
+    u16v = len_acc | (b << 8)
+    e16_zero = is_e16b * mk(u16v == 0)
+    e16_done = is_e16b * mk(u16v != 0)
+    u32v = len_acc | (b << 24)
+    e32_done = is_e32d
+    esc_len = (
+        eb_done * (b + 15 + MIN_MATCH)
+        + e16_done * (u16v + MIN_MATCH)
+        + e32_done * (u32v + MIN_MATCH)
+    )
+    esc_match = eb_done | e16_done | e32_done
+    err = err | (esc_match * (mk(off_p > p + hl) | mk(p + esc_len > out_len)))
+    rpos = sel(esc_match, p, rpos)
+    rval = sel(esc_match, _COPY_BIT | off_p, rval)
+    p = sel(esc_match, jnp.minimum(p + esc_len, U), p)
+
+    mode = (
+        is_w0 * _M_W1
+        + eb_more * _M_E16A
+        + is_e16a * _M_E16B
+        + e16_zero * _M_E32A
+        + is_e32nd * (mode + 1)
+        + (1 - active) * mode
+        # all completion/W1 paths -> provisional _M_W0 (== 0);
+        # overridden after the sub-loop
+    )
+    pend = pend * (1 - esc_match)  # esc_match -> _P_NONE (== 0)
+
+    # ---- symbol sub-loop after a completed refill / escape ----
+    # The 32-bit prime: no decoding until the second word (s >= 3),
+    # mirroring the spec reader ([MS-XCA] §2.2.4) so early escape
+    # bytes land after the 4-byte prime.
+    can_work = active * (esc_match | (is_w1 * mk(s >= 3)))
+    work = can_work
+    # snapshot after EVERY record-producing point: the pre-loop escape
+    # completion, each substep's offset-completion, and each substep's
+    # symbol decode — a later record must never overwrite an earlier
+    # one before it is captured.
+    recs = [(rpos, rval)]
+    for _ in range(SUBSTEPS):
+        # 1) pending offset bits
+        do_off = work * mk(pend == _P_OFFSET) * mk(bitcount >= obc_p)
+        obc_c = jnp.maximum(obc_p, 1)
+        raw = (bitbuf >> (32 - obc_c)) & (jnp.left_shift(1, obc_c) - 1)
+        raw = raw * mk(obc_p > 0)
+        offv = jnp.left_shift(1, obc_p) | raw
+        bitbuf = sel(do_off, bitbuf << obc_p, bitbuf)
+        bitcount = bitcount - do_off * obc_p
+        bits_used = bits_used + do_off * obc_p
+        short = do_off * mk(lh_p < 15)
+        mlen = lh_p + MIN_MATCH
+        err = err | (short * (mk(offv > p + hl) | mk(p + mlen > out_len)))
+        rpos = sel(short, p, rpos)
+        rval = sel(short, _COPY_BIT | offv, rval)
+        p = sel(short, jnp.minimum(p + mlen, U), p)
+        off_p = sel(do_off, offv, off_p)
+        pend = sel(short, jnp.int32(_P_NONE), sel(do_off, jnp.int32(_P_ESC), pend))
+        recs.append((rpos, rval))
+        # 2) fresh symbol
+        do_sym = work * mk(pend == _P_NONE) * mk(bitcount >= 16) * mk(p < out_len)
+        sym, slen, found = _decode_symbol(bitbuf, fc, lim, take)
+        do_sym = do_sym * found
+        bitbuf = sel(do_sym, bitbuf << slen, bitbuf)
+        bitcount = bitcount - do_sym * slen
+        bits_used = bits_used + do_sym * slen
+        is_lit = do_sym * mk(sym < 256)
+        rpos = sel(is_lit, p, rpos)
+        rval = sel(is_lit, sym, rval)
+        p = p + is_lit
+        is_m = do_sym * mk(sym >= 256)
+        msym = sym - 256
+        obc_p = sel(is_m, msym >> 4, obc_p)
+        lh_p = sel(is_m, msym & 0xF, lh_p)
+        pend = sel(is_m, jnp.int32(_P_OFFSET), pend)
+        work = work * mk(p < out_len)
+        recs.append((rpos, rval))
+
+    # SUBSTEPS must cover every symbol completable from one refill;
+    # if decodable state remains, the next byte would be mis-consumed
+    # as a refill word — flag rather than desync (host picks SUBSTEPS
+    # from the table's min code length, so valid streams never hit
+    # this).
+    leftover = (
+        can_work
+        * mk(p < out_len)
+        * (
+            (mk(pend == _P_NONE) * mk(bitcount >= 16))
+            | (mk(pend == _P_OFFSET) * mk(bitcount >= obc_p))
+        )
+    )
+    err = err | leftover
+
+    need_refill = mk(bitcount < 16)
+    mode = sel(
+        can_work,
+        sel(mk(pend == _P_ESC) * (1 - need_refill), jnp.int32(_M_EB),
+            jnp.int32(_M_W0)),
+        mode,
+    )
+
+    return (
+        (p, mode, pend, bitbuf, bitcount, lowbyte, obc_p, lh_p, off_p,
+         len_acc, rpos, rval, err, bits_used, raw_used),
+        tuple(r for rec in recs for r in rec),
+    )
+
+
+def parse_records(body, blen, out_len, lengths, U, SUBSTEPS, hist_len=None,
+                  impl=None):
+    """Byte-per-step lockstep bit reader over every block's body.
+
+    Returns (rec_pos [N, S*NREC], rec_val, carry) with NREC = 1 +
+    2*SUBSTEPS record snapshots per step, chronological and monotone."""
+    N, S = body.shape
     _, fc, br, lim = canonical_from_lengths(lengths)
     sym_by_rank = rank_to_symbol_table(lengths)  # [N, 512]
-
-    if mode is not None:
-        from ..kernels import xh_pallas
-
-        rec_pos, rec_val, p_final, errk = xh_pallas.parse_records(
-            payload[:, 256:], plen - 256, out_len, fc, br, lim,
-            sym_by_rank, U, SUBSTEPS, rank_cap=rank_cap,
-            interpret=(mode == "interpret"))
-        keep = min(U, (8 * (P - 256)) // _BUCKET_MCL.get(SUBSTEPS, 1) + 8)
-        keep = -(-keep // 128) * 128
-        return _records_to_output(rec_pos, rec_val, p_final, errk,
-                                  out_len, N, U, mode, keep=keep,
-                                  fast_resolve=fast_resolve)
-
-    iota512 = jnp.arange(NUM_SYMBOLS, dtype=jnp.int32)[None, :]
-    iota16 = jnp.arange(MAX_CODE_LEN + 1, dtype=jnp.int32)[None, :]
-
     # cross-block window: offsets may reach hist_len bytes before the
     # block start (0 without history — block-confined refs only)
     hl = jnp.zeros(N, jnp.int32) if hist_len is None else hist_len
-
-    body = payload[:, 256:]
-    bytes_T = body.T
-    steps = jnp.arange(P - 256, dtype=jnp.int32)
-    blen = plen - 256  # body length per row
-
-    # int32 0/1 masks throughout (bool scan intermediates measured ~3.4x
-    # slower + ~100x compile; see tpucomp/codecs/xpress.py)
-    def mk(c):
-        return c.astype(jnp.int32)
-
-    def sel(mask, a, bb):  # mask in {0,1}: mask ? a : bb
-        return bb + mask * (a - bb)
-
-    def decode_symbol(bitbuf):
-        """Arithmetic canonical decode from the top 15 window bits.
-        Returns (sym, length, found-mask)."""
-        peek15 = (bitbuf >> 17) & 0x7FFF
-        # level l matches when fc[l] <= peek_l < lim[l], peek_l = top l bits
-        peek_l = peek15[:, None] >> (15 - iota16)  # [N, 16]
-        okl = mk(peek_l >= fc) * mk(peek_l < lim) * mk(iota16 > 0)
-        # first matching level
-        l = jnp.min(sel(okl, iota16, jnp.int32(99)), axis=1)
-        found = mk(l <= MAX_CODE_LEN)
-        lc = jnp.minimum(l, MAX_CODE_LEN)
-        # select fc/br at level lc (one-hot over 16)
-        ohl = mk(lc[:, None] == iota16)
-        fc_l = jnp.sum(ohl * fc, axis=1)
-        br_l = jnp.sum(ohl * br, axis=1)
-        peek_lc = jnp.sum(ohl * peek_l, axis=1)
-        rank = br_l + (peek_lc - fc_l)
-        # rank -> symbol (one-hot over 512)
-        ohr = mk(rank[:, None] == iota512)
-        sym = jnp.sum(ohr * sym_by_rank, axis=1)
-        return sym, lc, found
-
-    def step(carry, xs):
-        (p, mode, pend, bitbuf, bitcount, lowbyte, obc_p, lh_p, off_p,
-         len_acc, rpos, rval, err, bits_used, raw_used) = carry
-        b, s = xs
-        active = mk(s < blen) * mk(p < out_len)
-
-        # ---- byte role ----
-        is_w0 = active * mk(mode == _M_W0)
-        is_w1 = active * mk(mode == _M_W1)
-        is_eb = active * mk(mode == _M_EB)
-        is_e16a = active * mk(mode == _M_E16A)
-        is_e16b = active * mk(mode == _M_E16B)
-        is_e32nd = active * mk(mode >= _M_E32A) * mk(mode < _M_E32D)
-        is_e32d = active * mk(mode == _M_E32D)
-
-        lowbyte = sel(is_w0, b, lowbyte)
-        # span accounting: every escape-role byte is a raw interleave byte
-        raw_used = raw_used + (is_eb | is_e16a | is_e16b | is_e32nd | is_e32d)
-        # escape u16/u32 accumulation
-        len_acc = sel(
-            is_e16a | (active * mk(mode == _M_E32A)), b,
-            sel(
-                active * mk(mode == _M_E32B), len_acc | (b << 8),
-                sel(active * mk(mode == _M_E32C), len_acc | (b << 16), len_acc),
-            ),
-        )
-
-        # word refill completes on W1
-        word = lowbyte | (b << 8)
-        bitbuf = sel(is_w1, bitbuf | (word << (16 - bitcount)), bitbuf)
-        bitcount = bitcount + is_w1 * 16
-
-        # ---- escape completions (produce a finished match) ----
-        eb_done = is_eb * mk(b < 255)
-        eb_more = is_eb * mk(b == 255)
-        u16v = len_acc | (b << 8)
-        e16_zero = is_e16b * mk(u16v == 0)
-        e16_done = is_e16b * mk(u16v != 0)
-        u32v = len_acc | (b << 24)
-        e32_done = is_e32d
-        esc_len = (
-            eb_done * (b + 15 + MIN_MATCH)
-            + e16_done * (u16v + MIN_MATCH)
-            + e32_done * (u32v + MIN_MATCH)
-        )
-        esc_match = eb_done | e16_done | e32_done
-        err = err | (esc_match * (mk(off_p > p + hl) | mk(p + esc_len > out_len)))
-        rpos = sel(esc_match, p, rpos)
-        rval = sel(esc_match, _COPY_BIT | off_p, rval)
-        p = sel(esc_match, jnp.minimum(p + esc_len, U), p)
-
-        mode = (
-            is_w0 * _M_W1
-            + eb_more * _M_E16A
-            + is_e16a * _M_E16B
-            + e16_zero * _M_E32A
-            + is_e32nd * (mode + 1)
-            + (1 - active) * mode
-            # all completion/W1 paths -> provisional _M_W0 (== 0);
-            # overridden after the sub-loop
-        )
-        pend = pend * (1 - esc_match)  # esc_match -> _P_NONE (== 0)
-
-        # ---- symbol sub-loop after a completed refill / escape ----
-        # The 32-bit prime: no decoding until the second word (s >= 3),
-        # mirroring the spec reader ([MS-XCA] §2.2.4) so early escape
-        # bytes land after the 4-byte prime.
-        can_work = active * (esc_match | (is_w1 * mk(s >= 3)))
-        work = can_work
-        # snapshot after EVERY record-producing point: the pre-loop escape
-        # completion, each substep's offset-completion, and each substep's
-        # symbol decode — a later record must never overwrite an earlier
-        # one before it is captured.
-        recs = [(rpos, rval)]
-        for _ in range(SUBSTEPS):
-            # 1) pending offset bits
-            do_off = work * mk(pend == _P_OFFSET) * mk(bitcount >= obc_p)
-            obc_c = jnp.maximum(obc_p, 1)
-            raw = (bitbuf >> (32 - obc_c)) & (jnp.left_shift(1, obc_c) - 1)
-            raw = raw * mk(obc_p > 0)
-            offv = jnp.left_shift(1, obc_p) | raw
-            bitbuf = sel(do_off, bitbuf << obc_p, bitbuf)
-            bitcount = bitcount - do_off * obc_p
-            bits_used = bits_used + do_off * obc_p
-            short = do_off * mk(lh_p < 15)
-            mlen = lh_p + MIN_MATCH
-            err = err | (short * (mk(offv > p + hl) | mk(p + mlen > out_len)))
-            rpos = sel(short, p, rpos)
-            rval = sel(short, _COPY_BIT | offv, rval)
-            p = sel(short, jnp.minimum(p + mlen, U), p)
-            off_p = sel(do_off, offv, off_p)
-            pend = sel(short, jnp.int32(_P_NONE), sel(do_off, jnp.int32(_P_ESC), pend))
-            recs.append((rpos, rval))
-            # 2) fresh symbol
-            do_sym = work * mk(pend == _P_NONE) * mk(bitcount >= 16) * mk(p < out_len)
-            sym, slen, found = decode_symbol(bitbuf)
-            do_sym = do_sym * found
-            bitbuf = sel(do_sym, bitbuf << slen, bitbuf)
-            bitcount = bitcount - do_sym * slen
-            bits_used = bits_used + do_sym * slen
-            is_lit = do_sym * mk(sym < 256)
-            rpos = sel(is_lit, p, rpos)
-            rval = sel(is_lit, sym, rval)
-            p = p + is_lit
-            is_m = do_sym * mk(sym >= 256)
-            msym = sym - 256
-            obc_p = sel(is_m, msym >> 4, obc_p)
-            lh_p = sel(is_m, msym & 0xF, lh_p)
-            pend = sel(is_m, jnp.int32(_P_OFFSET), pend)
-            work = work * mk(p < out_len)
-            recs.append((rpos, rval))
-
-        # SUBSTEPS must cover every symbol completable from one refill;
-        # if decodable state remains, the next byte would be mis-consumed
-        # as a refill word — flag rather than desync (host picks SUBSTEPS
-        # from the table's min code length, so valid streams never hit
-        # this).
-        leftover = (
-            can_work
-            * mk(p < out_len)
-            * (
-                (mk(pend == _P_NONE) * mk(bitcount >= 16))
-                | (mk(pend == _P_OFFSET) * mk(bitcount >= obc_p))
-            )
-        )
-        err = err | leftover
-
-        need_refill = mk(bitcount < 16)
-        mode = sel(
-            can_work,
-            sel(mk(pend == _P_ESC) * (1 - need_refill), jnp.int32(_M_EB),
-                jnp.int32(_M_W0)),
-            mode,
-        )
-
-        rec_pos_s = jnp.stack([r[0] for r in recs], axis=1)  # [N, NREC]
-        rec_val_s = jnp.stack([r[1] for r in recs], axis=1)
-        return (
-            (p, mode, pend, bitbuf, bitcount, lowbyte, obc_p, lh_p, off_p,
-             len_acc, rpos, rval, err, bits_used, raw_used),
-            (rec_pos_s, rec_val_s),
-        )
-
     z = jnp.zeros(N, jnp.int32)
-    init = (
-        z,  # p
-        z,  # mode = _M_W0 (prime: first 4 body bytes are two words)
-        z,  # pend
-        z,  # bitbuf
-        z,  # bitcount
-        z,  # lowbyte
-        z,  # obc_p
-        z,  # lh_p
-        z,  # off_p
-        z,  # len_acc
-        jnp.full((N,), -1, jnp.int32),  # rpos
-        z,  # rval
-        z,  # err (int mask)
-        z,  # bits_used
-        z,  # raw_used
-    )
-    carry, (rec_pos_T, rec_val_T) = lax.scan(step, init, (bytes_T, steps))
-    p_final, errk, bits_used, raw_used = carry[0], carry[12], carry[13], carry[14]
+    init = (z,) * 10 + (jnp.full((N,), -1, jnp.int32),) + (z,) * 4
+    carry, ys = lane_scan(
+        functools.partial(_parse_step, U=U, SUBSTEPS=SUBSTEPS), init,
+        (body.T,), consts=(blen, out_len, hl, fc, lim),
+        tables=(sym_by_rank, fc, br), impl=impl)
+    # [S, 2*NREC, N] -> [N, S*NREC], chronological + monotone
+    rec_pos = ys[:, 0::2, :].transpose(2, 0, 1).reshape(N, -1)
+    rec_val = ys[:, 1::2, :].transpose(2, 0, 1).reshape(N, -1)
+    return rec_pos, rec_val, carry
 
-    # [steps, N, NREC] -> [N, steps*NREC], chronological + monotone
-    S, _, NREC = rec_pos_T.shape
-    rec_pos = rec_pos_T.transpose(1, 0, 2).reshape(N, S * NREC)
-    rec_val = rec_val_T.transpose(1, 0, 2).reshape(N, S * NREC)
+
+def _decode_impl(payload, plen, out_len, U, SUBSTEPS, want_span=False,
+                 hist=None, hist_len=None, fast_resolve=False, impl=None):
+    """Decode a batch of single-block units.
+
+    ``want_span``: additionally return the exact byte span of the
+    decoded block body per the writer's lazy-flush layout (oracle
+    ``_block_byte_span``: 2*(2 + max(0, ceil(bits/16)-1)) + raw escape
+    bytes) — the block-boundary discovery the one-shot multi-block
+    decode needs ([MS-XCA] §2.1: boundaries are only discoverable by
+    decoding)."""
+    N, P = payload.shape
+    rec_pos, rec_val, carry = parse_records(
+        payload[:, 256:], plen - 256, out_len, _unpack_table(payload), U,
+        SUBSTEPS, hist_len, impl)
+    p_final, errk, bits_used, raw_used = (carry[0], carry[12], carry[13],
+                                          carry[14])
     keep = min(U, (8 * (P - 256)) // _BUCKET_MCL.get(SUBSTEPS, 1) + 8)
     keep = -(-keep // 128) * 128
     out, err = _records_to_output(rec_pos, rec_val, p_final, errk,
@@ -397,7 +374,7 @@ _BUCKET_MCL = {3: 8, 5: 4, 9: 2, 17: 1}
 
 
 def _records_to_output(rec_pos, rec_val, p_final, errk, out_len, N, U,
-                       mode=None, keep=None, hist=None, fast_resolve=False):
+                       keep=None, hist=None, fast_resolve=False):
     """Shared decode tail: monotone token records -> output bytes.
     Records with key >= queries' range (sentinels) never bind.
     ``keep``: sound bound on real records per row — the fill dedupes and
@@ -432,13 +409,7 @@ def _records_to_output(rec_pos, rec_val, p_final, errk, out_len, N, U,
         out = resolve_copies_wide(is_copy_c, disp_c, lit_c)[:, HU:]
         out = jnp.where(j < out_len[:, None], out, 0)
         return out, err
-    if mode is not None and U % 128 == 0:
-        from ..kernels import resolve_pallas
-
-        out = resolve_pallas.resolve_copies(
-            is_copy_j, disp_j, litv, interpret=(mode == "interpret"),
-            fast=fast_resolve)
-    elif U >= 8192 and U % 16 == 0:
+    if U >= 8192 and U % 16 == 0:
         # K-unrolled window scan: U/16 steps with one batched one-hot
         # each, instead of U per-position steps (64 KiB blocks)
         out = resolve_copies_wide(is_copy_j, disp_j, litv,
@@ -466,7 +437,7 @@ def make_encoder(u: int, jitter=None):
     return (jitter or jax.jit)(enc)
 
 
-def _encode_impl(units, ulen, U):
+def _encode_impl(units, ulen, U, impl=None):
     """Encode [N, U] blocks (U <= 65536) into single-block XH payloads.
 
     Stages: match-find + greedy commit -> per-position symbols ->
@@ -518,7 +489,7 @@ def _encode_impl(units, ulen, U):
     is_match = is_match & ~(next_bl > best_len)
 
     # ---- greedy commit (K-unrolled sequential walk) ----
-    committed = greedy_commit(is_match, best_len, pos < in_len)
+    committed = greedy_commit(is_match, best_len, pos < in_len, impl=impl)
     tok_copy = committed & is_match
 
     # ---- per-position symbols ----
@@ -537,7 +508,7 @@ def _encode_impl(units, ulen, U):
     lengths = huffman_code_lengths(freqs)
     codes, _, _, _ = canonical_from_lengths(lengths)
 
-    # ---- per-position (code, len) lookup (MXU gather over [512]) ----
+    # ---- per-position (code, len) lookup (one-hot gather over [512]) ----
     packed_tbl = (codes << 5) | lengths  # code<=15 bits, len<=15
     codelen_p = mxu_gather_rows(
         packed_tbl, jnp.minimum(sym, NUM_SYMBOLS - 1), nbits=20
@@ -585,8 +556,8 @@ def _encode_impl(units, ulen, U):
     # token's contributions c0/c1/c2 to words W, W+1, W+2 are closed-form
     # elementwise; the per-word OR over tokens is a segmented scan on the
     # (non-decreasing) word keys + one monotone placement + two rolls.
-    # All traffic-bound — replaces the one-hot MXU scatter whose MACs
-    # scaled as 4 streams x n records x n words.
+    # All traffic-bound (no one-hot matmul scatter, whose MACs would
+    # scale as 4 streams x n records x n words).
     W_tok = S_A >> 4
     relA = S_A & 15
     relB = S_B - 16 * W_tok  # = relA + bitsA <= 30
@@ -697,8 +668,7 @@ def compress_units(units_data, unit_size=BLOCK, jitter=None, pad_to=None,
         return []
     from ..config import DEFAULT as _CFG
 
-    # cap the widest single encode dispatch (config.encode_batch_cap —
-    # the remote AOT compiler dies on 256-row 64 KiB encode programs);
+    # cap the widest single encode dispatch (config.encode_batch_cap);
     # slices share ONE compile and keep any mesh multiple
     g = pad_to or 8
     cap = max(g, (_CFG.encode_batch_cap * 65536) // unit_size // g * g)
@@ -730,19 +700,10 @@ def compress_units(units_data, unit_size=BLOCK, jitter=None, pad_to=None,
 _DECODERS = {}
 
 
-def _xh_mode():
-    """Parse-scan backend: TPUCOMP_XH_PALLAS / TPUCOMP_PALLAS in
-    {auto, 1, 0, interpret}; auto = Pallas on TPU, XLA scan elsewhere."""
-    return pallas_mode("TPUCOMP_XH_PALLAS")
-
-
-def _dec_for(u, substeps, mode=None, rank_cap=NUM_SYMBOLS, jitter=None,
-             fast_resolve=False):
-    if mode is None:
-        rank_cap = NUM_SYMBOLS  # unused by the XLA scan: one compile
-    key = (u, substeps, mode, rank_cap, _jit_key(jitter), fast_resolve)
+def _dec_for(u, substeps, jitter=None, fast_resolve=False):
+    key = (u, substeps, _jit_key(jitter), fast_resolve)
     if key not in _DECODERS:
-        _DECODERS[key] = make_decoder(u, substeps, mode, rank_cap, jitter,
+        _DECODERS[key] = make_decoder(u, substeps, jitter,
                                       fast_resolve=fast_resolve)
     return _DECODERS[key]
 
@@ -771,31 +732,24 @@ def _substeps_for(mcl: int) -> int:
     return 17
 
 
-def _rank_cap(stream) -> int:
-    """Used-symbol count of a stream's table, quantized {256, 384, 512}:
-    the Pallas kernel's rank->symbol scan length (host table peek).  Few
-    tiers only — every tier is a separate Mosaic compile through the
-    (slow) remote helper — but the 384 tier pays for itself: typical
-    text blocks use 300-380 symbols, and the rank->symbol scan is the
-    kernel's dominant per-step cost (~R3 vector ops/substep)."""
-    tb = np.frombuffer(stream[:256], np.uint8)
-    used = int(np.count_nonzero(tb & 0xF) + np.count_nonzero(tb >> 4))
-    for cap in (256, 384):
-        if used <= cap:
-            return cap
-    return 512
+def decompress_units(streams, out_lens, unit_size=BLOCK, jitter=None,
+                     pad_to=None, gather=np.asarray, fast_resolve=False):
+    """Decompress a batch of independent single-block XH streams.
 
-
-def _decode_bucket(streams, out_lens, unit_size, substeps, mode=None,
-                   rank_cap=NUM_SYMBOLS, jitter=None, pad_to=None,
-                   gather=np.asarray, fast_resolve=False):
+    One device call per batch: its scan length is the longest stream's
+    and its symbol sub-loop the deepest any block's table needs.  The
+    blocks run in parallel lanes, so splitting the batch by stream size
+    or code length would add calls (and compiles) without shortening
+    the longest walk.
+    """
+    if not streams:
+        return []
     if any(o > unit_size for o in out_lens):
         raise ArgError("out_len larger than unit_size")
     N = pad_batch(len(streams), pad_to)
-    # scan length = padded payload width; bucket to the batch's real max
-    # (power-of-two body) so typical batches don't pay the 2x worst case
+    # scan length = padded payload width: the batch's longest body in
+    # 8 KiB steps, not the all-literals worst case
     max_body = max(len(s) for s in streams) - 256
-    # 8 KiB bucket granularity: scan length tracks the batch's real max
     body_bucket = max(1024, -(-max_body // 8192) * 8192)
     P = min(max_payload(unit_size), 256 + body_bucket + 16)
     payload = np.zeros((N, P), np.int32)
@@ -806,7 +760,8 @@ def _decode_bucket(streams, out_lens, unit_size, substeps, mode=None,
         a = np.frombuffer(s, np.uint8)
         payload[i, : len(a)] = a
         plen[i] = len(a)
-    out, err = _dec_for(unit_size, substeps, mode, rank_cap, jitter,
+    substeps = _substeps_for(_min_code_len(streams))
+    out, err = _dec_for(unit_size, substeps, jitter,
                         fast_resolve=fast_resolve)(
         jnp.asarray(payload), jnp.asarray(plen), jnp.asarray(olen)
     )
@@ -817,48 +772,6 @@ def _decode_bucket(streams, out_lens, unit_size, substeps, mode=None,
         out[i, : int(olen[i])].astype(np.uint8).tobytes()
         for i in range(len(streams))
     ]
-
-
-def decompress_units(streams, out_lens, unit_size=BLOCK, jitter=None,
-                     pad_to=None, gather=np.asarray, fast_resolve=False):
-    """Decompress a batch of independent single-block XH streams.
-
-    Blocks are BUCKETED by their table's min code length: a single
-    skewed block (1-bit codes) would otherwise force the deepest symbol
-    sub-loop on the whole batch (the substeps unroll is a compile-time
-    shape).
-    """
-    if not streams:
-        return []
-    mode = _xh_mode()
-    # scan length is per-batch: bucket by body size so one poorly-
-    # compressible block doesn't stretch every block's scan.  Coarser
-    # granularity on TPU: each variant is a slow remote compile.
-    gran = 16384 if mode == "tpu" else 8192
-    buckets = {}
-    for i, s in enumerate(streams):
-        ss = _substeps_for(_min_code_len([s]))
-        sizeb = max(1024, -(-(len(s) - 256) // gran) * gran)
-        # Pallas adds the rank->symbol scan length to the key.
-        rc = _rank_cap(s) if mode else NUM_SYMBOLS
-        buckets.setdefault((ss, sizeb, rc), []).append(i)
-    results = [None] * len(streams)
-    for (ss, _sb, rc), idxs in sorted(buckets.items()):
-        outs = _decode_bucket(
-            [streams[i] for i in idxs],
-            [out_lens[i] for i in idxs],
-            unit_size,
-            ss,
-            mode,
-            rc,
-            jitter,
-            pad_to,
-            gather,
-            fast_resolve,
-        )
-        for i, o in zip(idxs, outs):
-            results[i] = o
-    return results
 
 
 # --------------------------------------------------------------------------

@@ -15,7 +15,7 @@ from typing import Optional, Tuple
 
 @dataclass
 class MatchFinderConfig:
-    """Effort knobs for the shared TPU match finder (kernels/common.py).
+    """Effort knobs for the shared device match finder (kernels/common.py).
 
     Read at TRACE time by the encoder impls (hash_candidates /
     multi_matchlens / run_matchlens call sites): mutate
@@ -30,8 +30,7 @@ class MatchFinderConfig:
     run_disps: Tuple[int, ...] = (1, 2, 3)  # exact small-displacement runs
     # second finder pass with a 5-byte hash seed (0 = off): unions a
     # longer-match-biased candidate set at the same sort shape per pass
-    # (hq ratio profiles; the wide-cap alternative blows the compile
-    # budget through the remote AOT helper)
+    # (hq ratio profiles)
     second_hash_cands: int = 0
 
     def fingerprint(self):
@@ -47,8 +46,8 @@ class ResolveConfig:
     """LZ copy-resolution knobs (kernels/common.resolve_copies*).
 
     window: in-scan exact window (larger = fewer far rounds; cost is
-    ~window ops per scan step).  512 is the measured sweet spot on the
-    bench corpus (~79% of copy bytes have d <= 512)."""
+    ~window ops per scan step).  ~79% of the bench corpus's copy bytes
+    have d <= 512; the value is not re-tuned for the GPU."""
 
     window: int = 512
 
@@ -61,10 +60,10 @@ class Config:
     xh_unit_size: int = 65536  # <= 65536 (single block per unit)
     # Widest single ENCODE dispatch for 64 KiB-unit formats: wider
     # batches are processed in encode_batch_cap-row slices (one compile,
-    # reused).  The dev chip's remote AOT compiler dies on the 256-row
-    # XH/Xpress encode programs (bench ladder evidence, rounds 2-3);
-    # per-dispatch work at 128 rows is 8 MiB — the lanes are full.
-    encode_batch_cap: int = int(os.environ.get("TPUCOMP_ENCODE_CAP", "128"))
+    # reused), which bounds device memory.  On the H100 a 512-row XH
+    # encode took 250 ms and 3.7 GB of temporaries against 4 x 80 ms at
+    # 128 rows (PERF.md, PR 1).
+    encode_batch_cap: int = int(os.environ.get("TPUCOMP_ENCODE_CAP", "512"))
     match: MatchFinderConfig = field(default_factory=MatchFinderConfig)
     resolve: ResolveConfig = field(default_factory=ResolveConfig)
     emit_lznt1_terminator: bool = False

@@ -1,16 +1,16 @@
-"""Mesh data-parallelism: the framework's new, TPU-native layer.
+"""Mesh data-parallelism: the framework's new layer.
 
 The reference has NO parallelism components (SURVEY.md §2: single-threaded
-C++, no SIMD/GPU/networking).  This layer is designed fresh for TPU
+C++, no SIMD/GPU/networking).  This layer is designed fresh
 (SURVEY.md §2 "first-class new components", §5):
 
 * 1-D device mesh ``('data',)`` — compression units (LZNT1 4 KiB chunks,
   Xpress/XH 64 KiB blocks) are independent by format design, so data
   parallelism over units is the only axis that applies; no cross-unit
   state means no ring/Ulysses analog is needed.
-* pjit/jit with ``NamedSharding(P('data'))`` over ``[num_units, ...]``
-  batches; XLA GSPMD inserts any collectives (the NCCL-equivalent is the
-  XLA collective set over ICI/DCN — no custom transport).
+* jit with ``NamedSharding(P('data'))`` over ``[num_units, ...]``
+  batches, the batch programs under ``shard_map`` (row-independent, so
+  each device runs its own rows; no collectives inside a program).
 * Ragged compressed outputs ride fixed-shape padded buffers + true-length
   vectors; the ordered stitch (drop padding, concatenate in unit order)
   happens on host 0.

@@ -15,11 +15,11 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-from jax.sharding import NamedSharding, PartitionSpec as P
 
 from ..codecs import lznt1 as codec
-from ..codecs.lznt1_expose import decode_batch_impl, encode_batch_impl
+from ..codecs.lznt1 import decode_batch_impl, encode_batch_impl
 from ..errors import DataError
+from .sharded import MeshJit
 
 CHUNK = codec.CHUNK
 
@@ -30,18 +30,9 @@ class ShardedLZNT1:
     def __init__(self, mesh):
         self.mesh = mesh
         self.ndev = mesh.devices.size
-        batch_sharded = NamedSharding(mesh, P("data"))
-        repl = NamedSharding(mesh, P())
-        self._encode = jax.jit(
-            encode_batch_impl,
-            in_shardings=(batch_sharded, batch_sharded),
-            out_shardings=(batch_sharded, batch_sharded),
-        )
-        self._decode = jax.jit(
-            decode_batch_impl,
-            in_shardings=(batch_sharded, batch_sharded, batch_sharded),
-            out_shardings=(batch_sharded, batch_sharded, batch_sharded),
-        )
+        jitter = MeshJit(mesh)
+        self._encode = jitter(encode_batch_impl)
+        self._decode = jitter(decode_batch_impl)
 
     def _pad(self, n: int) -> int:
         m = max(self.ndev, 8)

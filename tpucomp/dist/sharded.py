@@ -14,6 +14,8 @@ On a single process it is the identity.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 
 import jax
@@ -30,9 +32,8 @@ from .mesh import data_mesh
 def _host_gather(x):
     """Fully materialize a (possibly multi-host sharded) array on host.
 
-    Multi-process: ``process_allgather`` rides XLA collectives (ICI
-    within a slice, DCN across hosts) — the TPU-native equivalent of the
-    classic NCCL ragged gather (SURVEY.md §5).  Exercised by
+    Multi-process: ``process_allgather`` rides XLA collectives — the
+    classic ragged gather (SURVEY.md §5).  Exercised by
     tests/test_multiprocess.py on a 2-process CPU ring.
     """
     if jax.process_count() > 1:
@@ -43,13 +44,15 @@ def _host_gather(x):
 
 
 class MeshJit:
-    """jit factory binding batch-dim GSPMD shardings over ('data',).
+    """jit factory that partitions the batch dim over ('data',).
 
     Passed as ``jitter`` into the codec modules' batch entry points so
-    every per-format kernel (not just LZNT1) runs partitioned.  The
-    ``key`` attribute keys the modules' compile caches; the last
-    computed output sharding is recorded for partition assertions
-    (tests + dryrun_multichip).
+    every per-format kernel (not just LZNT1) runs partitioned.  Every
+    batch program is row-independent, so it runs under ``shard_map``:
+    each device runs the whole program (GPU kernels included) on its
+    own rows.  The ``key`` attribute keys the modules' compile caches;
+    the last output sharding computed by the calling thread is recorded
+    for partition assertions (tests, dryrun_multichip, chip_smoke.py).
     """
 
     _instances = {}
@@ -61,25 +64,35 @@ class MeshJit:
         key = ("mesh", tuple(int(d.id) for d in mesh.devices.flat))
         if key not in cls._instances:
             inst = super().__new__(cls)
+            inst.mesh = mesh
             inst.sharding = NamedSharding(mesh, P("data"))
             inst.key = key
-            inst.last_out_sharding = None
+            inst._last = threading.local()
             cls._instances[key] = inst
         return cls._instances[key]
 
     def __init__(self, mesh):
         pass  # state lives in __new__'s per-mesh singleton
 
+    @property
+    def last_out_sharding(self):
+        return getattr(self._last, "sharding", None)
+
     def __call__(self, fn):
-        jf = jax.jit(fn, in_shardings=self.sharding,
+        local = jax.shard_map(fn, mesh=self.mesh, in_specs=P("data"),
+                              out_specs=P("data"), check_vma=False)
+        jf = jax.jit(local, in_shardings=self.sharding,
                      out_shardings=self.sharding)
 
         def wrapped(*args):
             out = jf(*args)
-            self.last_out_sharding = jax.tree_util.tree_leaves(out)[0].sharding
+            self._last.sharding = jax.tree_util.tree_leaves(out)[0].sharding
             return out
 
         return wrapped
+
+
+_LZNT1_JITS = {}
 
 
 class ShardedCodec:
@@ -214,13 +227,15 @@ class ShardedCodec:
     # ---- LZNT1 unit adapters (chunk == unit) -----------------------------
 
     def _lznt1_jit(self, encode: bool):
-        from ..codecs.lznt1_expose import decode_batch_impl, encode_batch_impl
+        # one compiled program per mesh, shared by every instance (the
+        # batch API builds a new ShardedCodec per call)
+        from ..codecs.lznt1 import decode_batch_impl, encode_batch_impl
 
-        attr = "_lznt1_enc" if encode else "_lznt1_dec"
-        if not hasattr(self, attr):
+        key = (self.jitter.key, encode)
+        if key not in _LZNT1_JITS:
             impl = encode_batch_impl if encode else decode_batch_impl
-            setattr(self, attr, self.jitter(impl))
-        return getattr(self, attr)
+            _LZNT1_JITS[key] = self.jitter(impl)
+        return _LZNT1_JITS[key]
 
     def _lznt1_units(self, units, encode: bool):
         m = self._mod

@@ -1,8 +1,8 @@
-"""Shared TPU kernel building blocks (SURVEY.md §2 rows 7–9 equivalents).
+"""Shared device kernel building blocks (SURVEY.md §2 rows 7–9 equivalents).
 
-Everything here obeys the measured TPU cost model (no scatters, no
-per-row gathers inside loops — see tpucomp/codecs/lznt1.py docstring):
-scans, one-shot gathers, rolls, binary search, and XLA sorts only.
+Data-parallel primitives without scatters or per-row gathers inside
+loops: scans, one-shot gathers, rolls, binary search and XLA sorts, plus
+the lane-scan kernel (lane_scan.py) for the per-lane sequential walks.
 """
 
 from .common import (  # noqa: F401

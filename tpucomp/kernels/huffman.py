@@ -1,4 +1,4 @@
-"""Batched canonical Huffman construction on TPU (no gathers/scatters).
+"""Batched canonical Huffman construction on device (no gathers/scatters).
 
 Reference parity: ``include/mscomp/HuffmanEncoder.h`` /
 ``HuffmanDecoder.h`` (SURVEY.md §2 row 8; mount unavailable).  The oracle
@@ -7,7 +7,7 @@ uses optimal package-merge; this device kernel builds true Huffman depths
 to the 15-bit limit — equal or near-equal code cost in practice, always a
 valid prefix code.
 
-TPU cost-model compliance (see tpucomp/codecs/lznt1.py):
+Data-parallel form (see tpucomp/codecs/lznt1.py):
 * the two-queue merge is one 511-step lockstep scan; queue reads are
   one-hot selects over the small [N, 512] node array (cheap at this size)
 * node depths: reverse scan; parent depth read again via small one-hot

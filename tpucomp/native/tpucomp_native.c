@@ -20,7 +20,7 @@
 /* Encoder option flags (the *_compress_opt entry points). */
 #define OPT_RESOLVE_OFFSETS 1 /* encode-time origin-ascent offset rewrite */
 
-/* Offset-rewrite parameters.  RW_NEAR mirrors the TPU decoder's
+/* Offset-rewrite parameters.  RW_NEAR mirrors the device decoder's
  * in-scan resolve window (kernels/common.py RESOLVE_WINDOW): matches
  * with d <= RW_NEAR resolve inside the decode scan, so only farther
  * matches are rewritten (growing a near offset would ADD far tags).
@@ -54,8 +54,8 @@ static inline int rw_ascend(const int32_t *imm, int pos, int off, int len,
     return off;
 }
 
-/* Decode-depth model, mirroring the TPU decoder's resolve semantics
- * (kernels/resolve_pallas.py + kernels/common._far_rounds): copy chains
+/* Decode-depth model, mirroring the device decoder's resolve semantics
+ * (kernels/common.resolve_copies_wide + _far_rounds): copy chains
  * confined to one RW_SEG-byte segment are resolved by the decoder's
  * CHEAP segment-level pointer-doubling rounds (gather table = segment);
  * only a hop that CROSSES a segment boundary costs a full-row dense
@@ -87,11 +87,11 @@ static inline int rw_ascend(const int32_t *imm, int pos, int off, int len,
 #ifndef RW_XP_CHAIN_CAP
 #define RW_XP_CHAIN_CAP 32
 #endif
-/* Near-walk granule: the decoder's Pallas near scan (resolve_pallas.py,
- * SEG=512) walks each 512-byte segment sequentially and copies window
- * VALUES verbatim — a hop whose source lies in the SAME 512-segment
- * therefore ADOPTS the source's pointer state (final byte or far tag)
- * at zero chain cost.  Charging such hops +1 chain link (the pre-r4
+/* Near-walk granule: the decoder's near-window walk
+ * (kernels/common.resolve_copies_wide, 512-byte window) copies window
+ * VALUES verbatim — a hop whose source lies in the SAME 512-segment is
+ * always inside that window and therefore ADOPTS the source's pointer
+ * state (final byte or far tag) at zero chain cost.  Charging such hops +1 chain link (the pre-r4
  * model) over-counted the common small-offset case and shortened
  * matches the decoder resolves for free. */
 #define RW_NEAR_SHIFT 9

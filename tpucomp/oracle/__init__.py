@@ -1,6 +1,6 @@
 """CPU oracle codecs — spec-exact [MS-XCA] transcriptions.
 
-These are the correctness ground truth for the TPU codecs (SURVEY.md §0
+These are the correctness ground truth for the device codecs (SURVEY.md §0
 protocol item 2: the reference mount at /root/reference was empty, so a
 small, obviously-correct in-repo CPU codec substitutes for the reference
 binary as the bit-compatibility oracle).

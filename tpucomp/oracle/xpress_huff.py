@@ -256,9 +256,9 @@ def compress(data: bytes, *, max_chain: int = 96,
     ``cross_block=True``: matches reach up to 65535 back ACROSS block
     boundaries ([MS-XCA] §2.1 — the reference encoder's window), giving
     better ratios near block starts; False (default) confines matches
-    to their block, matching the TPU block-parallel encoder bit-for-bit
+    to their block, matching the device block-parallel encoder bit-for-bit
     test expectations.  Both emit standard streams; this module's
-    decompress (and the TPU one-shot decode's history window) take
+    decompress (and the device one-shot decode's history window) take
     either."""
     data = bytes(data)
     out = bytearray()

@@ -1,4 +1,4 @@
-"""Small host/device helpers shared by the TPU codecs."""
+"""Small host/device helpers shared by the device codecs."""
 
 from __future__ import annotations
 
@@ -7,8 +7,9 @@ import os
 import numpy as np
 
 # Unit-batch rows are padded up to mult * 2^k bucket sizes: few distinct
-# shapes (bounded jit recompiles) and enough lanes to fill the VPU.
-# Tests set TPUCOMP_BATCH_MULTIPLE=8 to keep CPU simulation cheap.
+# shapes (bounded jit recompiles).  256 is a multiple of the lane-scan
+# kernel's 32-lane blocks; it is not tuned for the GPU.  Tests set
+# TPUCOMP_BATCH_MULTIPLE=8 to keep CPU simulation cheap.
 BATCH_MULTIPLE = int(os.environ.get("TPUCOMP_BATCH_MULTIPLE", "256"))
 
 
@@ -53,22 +54,22 @@ def rows_to_bytes(arr: np.ndarray, lengths) -> bytes:
     return b"".join(parts)
 
 
-def pallas_mode(env_var: str):
-    """Parse-scan backend select for a codec's Pallas kernel.
+# the checkout this package lives in (its parent directory)
+CHECKOUT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-    Reads ``env_var`` then the shared TPUCOMP_PALLAS, values in
-    {auto, 1, 0, interpret}; auto (default) = Pallas on TPU backends,
-    XLA scan elsewhere.  Returns None | "tpu" | "interpret".
-    """
-    import os
 
+def use_compile_cache() -> str:
+    """Keep JAX's persistent compile cache at a fixed path; returns it.
+
+    If ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and
+    nothing is set here; otherwise the cache goes to
+    ``<checkout>/.jax_cache``.  The path is part of the cache key, so it
+    must not move between runs."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
     import jax
 
-    v = os.environ.get(env_var, os.environ.get("TPUCOMP_PALLAS", "auto"))
-    if v == "0":
-        return None
-    if v == "interpret":
-        return "interpret"
-    if v == "1" or jax.default_backend() == "tpu":
-        return "tpu"
-    return None
+    path = os.path.join(CHECKOUT, ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
